@@ -1,0 +1,94 @@
+"""Per-block top-k magnitude compression — the unfused sparse accumulate.
+
+Port of :mod:`repro.kernels.topk_compress`: x (V,) → ``(idx, vals)``, each
+of length ``nblocks * k_per_block``; per block of ``block_v`` entries, the
+``k_per_block`` largest |x| in (|x| desc, index asc) order.  Lanes past V
+and exhausted slots give ``(0, 0)``; a valid zero keeps its real index.
+
+Two CUDA bodies compute it (``csrc/topk_compress.cu``), element-wise
+identical: ``method="argmax"`` (k block-wide argmax rounds) and
+``method="bitonic"`` (one sort of the block, whatever k is).  ``method=None``
+takes bitonic from :data:`BITONIC_MIN_K` on.  A CPU tensor takes
+:func:`topk_compress_plain`, which both bodies are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.bitonic import key_pos, key_valid, sort_desc, topk_keys
+
+# The crossover of the two bodies, carried over from the JAX package's CPU
+# interpret-mode timing.  Not yet measured on the card: chip_smoke.py times
+# both bodies, and this moves only on that evidence.
+BITONIC_MIN_K = 65
+METHODS = ("argmax", "bitonic")
+MAX_BLOCK = 1024  # one CTA holds a whole block
+
+launches = {m: build.LaunchCounter(f"topk_compress_{m}") for m in METHODS}
+
+_SIGNATURES = {"topk_compress_f32": (build.PTR, build.PTR, build.PTR, build.LONG,
+                                     build.INT, build.INT, build.INT, build.PTR)}
+
+
+def topk_compress_plain(x: torch.Tensor, k_per_block: int, block_v: int):
+    """The plain PyTorch version: a sort of packed keys per block."""
+    v = x.shape[0]
+    block_v = min(block_v, v)
+    nblocks = -(-v // block_v)
+    xp = torch.nn.functional.pad(x, (0, nblocks * block_v - v))
+    xp = xp.reshape(nblocks, block_v)
+    flat_pos = torch.arange(nblocks * block_v, device=x.device)
+    valid = (flat_pos < v).reshape(nblocks, block_v)
+    top = sort_desc(topk_keys(xp, valid))[:, :k_per_block]
+    pos = key_pos(top)
+    ok = key_valid(top)
+    base = (torch.arange(nblocks, device=x.device) * block_v)[:, None]
+    idx = torch.where(ok, base + pos, 0).to(torch.int32).reshape(-1)
+    vals = torch.where(ok, torch.gather(xp, 1, pos), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+    return idx, vals.reshape(-1)
+
+
+def topk_compress(x: torch.Tensor, *, k_per_block: int, block_v: int = 1024,
+                  method: str | None = None):
+    """``(idx int32, vals)`` of the blocked top-k of a 1-D ``x``.
+
+    On the card this launches the CUDA body ``method`` picks (float32 input,
+    blocks of at most 1024); on the CPU it runs the plain version."""
+    if x.ndim != 1:
+        raise ValueError(f"topk_compress wants a 1-D vector, got shape {tuple(x.shape)}")
+    if k_per_block < 1:
+        raise ValueError(f"k_per_block must be >= 1, got {k_per_block}")
+    block_v = min(block_v, x.shape[0])
+    if k_per_block > block_v:
+        raise ValueError(
+            f"k_per_block={k_per_block} exceeds the block size {block_v} — "
+            "nothing left to select")
+    if method is None:
+        method = "bitonic" if k_per_block >= BITONIC_MIN_K else "argmax"
+    if method not in METHODS:
+        raise ValueError(f"method must be argmax|bitonic, got {method!r}")
+    if x.device.type == "cpu":
+        return topk_compress_plain(x, k_per_block, block_v)
+    if x.device.type != "cuda":
+        raise ValueError(f"topk_compress runs on cpu or cuda, not {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the topk_compress kernel takes float32, got {x.dtype}")
+    if block_v > MAX_BLOCK:
+        raise ValueError(f"the topk_compress kernel takes blocks of at most "
+                         f"{MAX_BLOCK}, got {block_v}")
+    x = x.contiguous()
+    v = x.shape[0]
+    nblocks = -(-v // block_v)
+    idx = torch.empty(nblocks * k_per_block, dtype=torch.int32, device=x.device)
+    vals = torch.empty(nblocks * k_per_block, dtype=x.dtype, device=x.device)
+    lib = build.library("topk_compress", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        code = lib.topk_compress_f32(x.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+                                     v, block_v, k_per_block,
+                                     int(method == "bitonic"), build.stream_of(x))
+    build.check(lib, "topk_compress_f32", code)
+    launches[method].add()
+    return idx, vals
