@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the run exits non-zero:
              assignments and dist² within 1e-5 relative.  Each is timed
              (median of CUDA-event timings) beside its plain version, its
              bound and, where one PyTorch call computes the same function,
-             that call.
+             that call.  flash_attention (fp32 and bf16) and ssd_scan are
+             held to test_kernels.py's tolerances at its shapes and at the
+             shapes the LM main path gives them.
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused), kmeans on the
@@ -26,12 +28,23 @@ Phases, in order; any failure raises and the run exits non-zero:
              before each run and read just after; every kernel must have
              been launched.  A small run of each app is also held against
              its single-thread reference on the CPU.
-5. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+5. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
+             their full published configs, random weights from a fixed
+             generator, device left at its default: (a) make_prefill_step on
+             4 x 2048 tokens, which must launch the kernel once per layer;
+             (b) forward on a 256-token prompt against 256 decode steps of
+             it: max |dlogit| <= 1e-3 max |logit| and the same argmax at
+             every position, the decode steps timed in four 64-step blocks;
+             mamba2-2.7b's gap is printed for its plain chunked forward too,
+             on the same weights; (c) serve(smoke=False) with 4 x 32 prompt
+             tokens and 32 generated.  Each model is freed before the next.
+6. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -45,16 +58,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import card_info  # noqa: E402
 from repro_torch.analytics import kmeans, logreg, pagerank  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import HostBackend, Session  # noqa: E402
 from repro_torch.core.sparse import block_layout  # noqa: E402
 from repro_torch.data import kmeans_dataset, logreg_dataset, powerlaw_graph  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.accumulate.fused_scatter import (  # noqa: E402
     fused_topk_scatter, fused_topk_scatter_plain)
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_bhsd, gqa_plain)
+from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
     BITONIC_MIN_K, topk_compress, topk_compress_plain)
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -83,7 +106,19 @@ KERNELS = {
                               "src/repro/kernels/topk_compress/kernel.py:52"),
     "kmeans_assign": ("src/repro_torch/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign/kernel.py:31"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:70"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:62"),
 }
+
+# the LM serving path: each model at its full published config, with the
+# prefill implementation that runs its kernel; prefill batch x length
+LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, "flash_attention"),
+             "mamba2-2.7b": ({"ssd_impl": "pallas"}, "ssd_scan")}
+LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
+SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
 
 
 def log(*args) -> None:
@@ -253,6 +288,90 @@ def check_assign(pts, ctr, a, dist, pa, pd) -> None:
                                atol=1e-6 * float((pts * pts).sum(1).max()))
 
 
+def cuda_normal(rng, shape, scale=1.0, dtype=torch.float32):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).cuda().to(dtype)
+
+
+def check_flash(rng) -> dict:
+    """flash_attention against its plain version: test_kernels.py's four
+    sweep shapes in fp32 and bf16, a GQA shape with q_offset and T != S, and
+    the qwen3-1.7b prefill shape (B 4, T 2048, KH 8, G 2, d 128), timed
+    there beside SDPA on the same inputs (K/V expanded to the 16 heads)."""
+    def held(out, ref, dtype, what):
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"flash_attention {what}: {m}")
+
+    for dtype in FLASH_TOL:
+        for bh, t, s, d, dv, causal in [(2, 128, 128, 64, 64, True), (1, 96, 160, 32, 16, False),
+                                        (3, 64, 64, 128, 128, True), (1, 17, 33, 16, 16, True)]:
+            q, k, v = (cuda_normal(rng, sh, dtype=dtype) for sh in ((bh, t, d), (bh, s, d),
+                                                                    (bh, s, dv)))
+            held(flash_attention_bhsd(q, k, v, causal=causal),
+                 attention_bhsd_ref(q, k, v, causal=causal), dtype, (bh, t, s, d, dv, dtype))
+        q = cuda_normal(rng, (2, 130, 4, 2, 128), dtype=dtype)
+        k, v = (cuda_normal(rng, (2, 200, 4, 128), dtype=dtype) for _ in range(2))
+        held(fa_ops.flash_attention(q, k, v, causal=True, q_offset=70),
+             gqa_plain(q, k, v, causal=True, q_offset=70), dtype, f"GQA q_offset=70 {dtype}")
+
+    b, t, kh, g, d = LM_BATCH, LM_PREFILL, 8, 2, 128
+    q = cuda_normal(rng, (b, t, kh, g, d))
+    k, v = (cuda_normal(rng, (b, t, kh, d)) for _ in range(2))
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    ref = gqa_plain(q, k, v, causal=True, q_offset=0)
+    held(out, ref, torch.float32, "qwen3-1.7b prefill shape")
+    visible = t * (t + 1) // 2                       # causal (query, key) pairs per head
+    tb, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()),
+                      4.0 * b * kh * g * visible * d)
+    qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
+    ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    return dict(
+        shape=f"q ({b}, {t}, {kh}, {g}, {d}) f32, k/v ({b}, {t}, {kh}, {d}), causal",
+        max_abs_err=float((out - ref).abs().max()),
+        ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
+        plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=True, q_offset=0), 5),
+        bound_ms=tb, bound_by=by,
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 20))
+
+
+def ssd_inputs(rng, b, t, h, p, g, n):
+    """xbar, a, B, C as ops.ssd makes them from x, dt, A_log (A_log as
+    init_mamba2 sets it; dt a softplus, as mamba2_forward makes it)."""
+    x = cuda_normal(rng, (b, t, h, p), 0.5)
+    dt = torch.nn.functional.softplus(cuda_normal(rng, (b, t, h)))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    a = (dt * -torch.exp(a_log)).float()
+    return x * dt[..., None], a, cuda_normal(rng, (b, t, g, n), 0.3), \
+        cuda_normal(rng, (b, t, g, n), 0.3)
+
+
+def check_ssd(rng) -> dict:
+    """ssd_scan against its plain version (the chunked algorithm):
+    test_kernels.py's shapes at chunk 8/16/32, then the mamba2-2.7b prefill
+    shape (b 4, T 2048, H 80, P 64, G 1, N 128, chunk 128), timed there."""
+    for chunk in (8, 16, 32):
+        xbar, a, bm, cm = ssd_inputs(rng, 2, 64, 4, 8, 2, 16)
+        torch.testing.assert_close(ssd_scan(xbar, a, bm, cm, chunk=chunk),
+                                   ssd_scan_plain(xbar, a, bm, cm, chunk)[0], **SSD_TOL)
+    b, t, h, p, g, n, q = LM_BATCH, LM_PREFILL, 80, 64, 1, 128, 128
+    xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
+    y = ssd_scan(xbar, a, bm, cm, chunk=q)
+    ref = ssd_scan_plain(xbar, a, bm, cm, q)[0]
+    torch.testing.assert_close(y, ref, **SSD_TOL)
+    # per chunk and head: the scores and their product with xbar over the
+    # causal (row, key) pairs, the carried-state term and the state update
+    pairs = q * (q + 1) // 2
+    flops = (2.0 * pairs * (n + p) + 4.0 * q * n * p) * (t // q) * b * h
+    tb, by = bound_ms(4 * (2 * xbar.numel() + a.numel() + bm.numel() + cm.numel()), flops)
+    return dict(
+        shape=f"xbar ({b}, {t}, {h}, {p}) f32, B/C ({b}, {t}, {g}, {n}), chunk {q}",
+        max_abs_err=float((y - ref).abs().max()),
+        ms=time_ms(lambda: ssd_scan(xbar, a, bm, cm, chunk=q), 20),
+        plain_ms=time_ms(lambda: ssd_scan_plain(xbar, a, bm, cm, q), 5),
+        bound_ms=tb, bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the apps through the host Session
 # ---------------------------------------------------------------------------
@@ -272,7 +391,7 @@ def run_app(label: str, counts: dict, fn):
     launched = build.launch_counts()
     for name, c in launched.items():
         counts[name] = counts.get(name, 0) + c
-    log(f"app {label}: wall {wall:.3f} s, peak device memory "
+    log(f"run {label}: wall {wall:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
         f"{json.dumps({k: v for k, v in launched.items() if v})}")
     return out, launched
@@ -432,6 +551,104 @@ def run_apps() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the LM serving path at full width
+# ---------------------------------------------------------------------------
+
+
+def logit_gap(label: str, full, stepped) -> tuple:
+    """Print and return max |dlogit| of a forward against the decode steps,
+    max |logit| of the forward, and whether the argmax agrees everywhere."""
+    delta = float((full - stepped).abs().max())
+    scale = float(full.abs().max())
+    same = bool(torch.equal(full.argmax(-1), stepped.argmax(-1)))
+    log(f"lm {label} vs {LM_CONSISTENCY} decode steps: max |dlogit| {delta:.3e}, "
+        f"max |logit| {scale:.3e}, ratio {delta / scale:.3e} (limit 1e-3), "
+        f"argmax equal at every position: {same}")
+    return delta, scale, same
+
+
+def run_lm() -> dict:
+    # the app phase's sessions hold device tensors in reference cycles: free
+    # them, so the peak memory read here is the models'
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts: dict = {}
+    for arch, (overrides, kernel) in LM_MODELS.items():
+        cfg = get_arch(arch).replace(**overrides)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        model = build_model(cfg, generator=gen)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"lm {arch}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32), "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        prefill = make_prefill_step(model)
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        prefill({"tokens": tokens[:, :LM_CONSISTENCY]})      # warm-up, not counted
+
+        # (a) prefill at B x T
+        t0 = time.perf_counter()
+        logits, launched = run_app(f"lm {arch} prefill {LM_BATCH}x{LM_PREFILL}", counts,
+                                   lambda: prefill({"tokens": tokens}))
+        log(f"lm {arch} prefill: {LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} "
+            "tokens/s")
+        expect_launches(f"{arch} prefill", launched, {kernel: cfg.n_layers})
+        if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)} not finite "
+                                 "or of the wrong shape")
+        del logits
+
+        # (b) forward vs decode steps on one prompt: the kernel inside the
+        # model, with its causal mask or chunk carry, against the cache path
+        prompt = tokens[:, :LM_CONSISTENCY]
+        full, launched = run_app(f"lm {arch} forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
+                                 lambda: prefill({"tokens": prompt}))
+        expect_launches(f"{arch} forward", launched, {kernel: cfg.n_layers})
+        # the decode steps double as a decode-rate window: four blocks of
+        # DECODE_BLOCK steps, each timed between two synchronisations
+        rates = []
+        with torch.no_grad():
+            cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
+            steps = []
+            for pos in range(LM_CONSISTENCY):
+                if pos % DECODE_BLOCK == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                step, cache = model.decode_step(cache, prompt[:, pos:pos + 1], pos)
+                steps.append(step[:, 0])
+                if (pos + 1) % DECODE_BLOCK == 0:
+                    torch.cuda.synchronize()
+                    rates.append(LM_BATCH * DECODE_BLOCK / (time.perf_counter() - t0))
+            stepped = torch.stack(steps, dim=1)
+        log(f"lm {arch} decode, batch {LM_BATCH}, tokens/s per {DECODE_BLOCK}-step block: "
+            f"{[round(r, 1) for r in rates]} (median {statistics.median(rates):.1f})")
+        delta, scale, same = logit_gap(f"{arch} prefill", full, stepped)
+        if not delta <= 1e-3 * scale or not same:
+            raise AssertionError(f"{arch}: prefill and decode disagree")
+        if kernel == "ssd_scan":
+            # the same check on the plain chunked algorithm, with the same
+            # weights and prompt: a gap like the kernel's is the algorithm's
+            model.ssm = model.ssm._replace(ssd_impl="chunked")
+            plain = prefill({"tokens": prompt})
+            logit_gap(f"{arch} chunked (plain) forward", plain, stepped)
+            log(f"lm {arch} kernel vs chunked forward: max |dlogit| "
+                f"{float((full - plain).abs().max()):.3e}")
+            del plain
+        del model, prefill, full, stepped, steps, cache
+        torch.cuda.empty_cache()
+
+        # (c) the serving loop at full width (prefill by decode + greedy)
+        toks, _ = run_app(f"lm {arch} serve", counts, lambda: serve(
+            arch, smoke=False, batch=LM_BATCH, prompt_len=32, gen=32, seed=SEED))
+        if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise AssertionError(f"{arch} serve: tokens {toks.shape} out of range")
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -449,12 +666,16 @@ def main() -> None:
 
     rng = np.random.default_rng(SEED)
     measured = check_kernels(rng)
+    measured["flash_attention"] = check_flash(rng)
+    measured["ssd_scan"] = check_ssd(rng)
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "
             f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}")
 
     counts = run_apps()
+    for name, n in run_lm().items():
+        counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")

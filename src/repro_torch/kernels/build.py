@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fused_scatter", "topk_compress", "kmeans_assign")
+SOURCES = ("fused_scatter", "topk_compress", "kmeans_assign", "flash_attention",
+           "ssd_scan")
 HEADERS = ("common.cuh", "bitonic.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 LONG = ctypes.c_longlong
+FLOAT = ctypes.c_float
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,107 @@
+"""The flash attention kernel's wrapper (``csrc/flash_attention.cu``).
+
+Port of :mod:`repro.kernels.flash_attention.kernel`.  One launch computes
+attention for every (batch, query head) of the GQA layout q (B, T, KH, G,
+dk), k (B, S, KH, dk), v (B, S, KH, dv) → (B, T, KH, G, dv): query head
+(kh, g) reads KV head kh.  :func:`flash_attention_bhsd` is the TPU kernel's
+(BH, T, d) form, the same launch with KH = G = 1.
+
+A CPU tensor takes the plain version (:func:`attention_bhsd_ref` after the
+JAX wrapper's fold of (KH, G) into the head axis); a CUDA tensor launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref
+
+MAX_HEAD_DIM = 256                 # dk and dv: the kernel's widest instantiation
+MAX_SHARED_BYTES = 227 * 1024      # a CTA's shared memory on Hopper
+DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+
+launches = build.LaunchCounter("flash_attention")
+
+_ENTRY = (build.PTR, build.PTR, build.PTR, build.PTR, build.INT, build.INT, build.INT,
+          build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
+          build.FLOAT, build.PTR)
+_SIGNATURES = {"flash_attention_f32": _ENTRY, "flash_attention_bf16": _ENTRY}
+
+
+def smem_bytes(dk: int, dv: int) -> int:
+    """Shared memory of one CTA (csrc/flash_attention.cu: the Q, K, V and
+    probability tiles of 64 rows, each row padded for aligned float4 reads)."""
+    qk_stride = dk + (4 if (dk // 4) % 2 == 0 else 8)
+    return 4 * (128 * qk_stride + 64 * (dv + 4) + 64 * 68)
+
+
+def gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+              q_offset: int) -> torch.Tensor:
+    """The plain version on the GQA layout: fold (KH, G) into the head axis,
+    broadcast K/V over G (as the JAX wrapper does) and run the reference."""
+    B, T, KH, G, d = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    qb = q.permute(0, 2, 3, 1, 4).reshape(B * KH * G, T, d)
+    kb = k.permute(0, 2, 1, 3)[:, :, None].expand(B, KH, G, S, d).reshape(B * KH * G, S, d)
+    vb = v.permute(0, 2, 1, 3)[:, :, None].expand(B, KH, G, S, dv).reshape(B * KH * G, S, dv)
+    out = attention_bhsd_ref(qb, kb, vb, causal=causal, q_offset=q_offset)
+    return out.reshape(B, KH, G, T, dv).permute(0, 3, 1, 2, 4)
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q (B, T, KH, G, dk); k (B, S, KH, dk); v (B, S, KH, dv) → (B, T, KH, G, dv)
+    in q's dtype (fp32 math)."""
+    if q.ndim != 5 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_attention wants q (B, T, KH, G, dk), k (B, S, KH, dk), "
+                         f"v (B, S, KH, dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, T, KH, G, dk = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    if k.shape != (B, S, KH, dk) or v.shape[:3] != (B, S, KH):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return gqa_plain(q, k, v, causal=causal, q_offset=q_offset)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention runs on cpu or cuda with q, k, v on one device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash_attention kernel takes float32 or bfloat16 q, k, v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if max(dk, dv) > MAX_HEAD_DIM or dk % 4 or dv % 4 \
+            or smem_bytes(dk, dv) > MAX_SHARED_BYTES:
+        raise ValueError(f"the flash_attention kernel takes head dims that are multiples "
+                         f"of 4, up to {MAX_HEAD_DIM}; got dk={dk}, dv={dv}")
+    if q_offset < 0:
+        raise ValueError("the flash_attention kernel needs q_offset >= 0 (key 0 visible "
+                         f"to every query), got {q_offset}")
+    if S == 0:
+        raise ValueError("flash_attention needs at least one key")
+    out = torch.empty((B, T, KH, G, dv), dtype=q.dtype, device=q.device)
+    if B * T * KH * G == 0:
+        return out
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    name = DTYPES[q.dtype]
+    lib = build.library("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        code = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  B, T, S, KH, G, dk, dv, int(bool(causal)), int(q_offset),
+                                  1.0 / math.sqrt(dk), build.stream_of(q))
+    build.check(lib, name, code)
+    launches.add()
+    return out
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q (BH, T, d), k (BH, S, d), v (BH, S, dv) → (BH, T, dv)."""
+    if q.device.type == "cpu":
+        return attention_bhsd_ref(q, k, v, causal=causal, q_offset=q_offset)
+    out = flash_attention_gqa(q[:, :, None, None], k[:, :, None], v[:, :, None],
+                              causal=causal, q_offset=q_offset)
+    return out[:, :, 0, 0]

@@ -1,0 +1,200 @@
+"""Attention: GQA/MHA (+ qk-norm, qkv-bias, RoPE) for prefill and decode.
+
+Port of the GQA half of :mod:`repro.models.attention`.  Prefill runs one of
+three implementations of the same function (``GQAConfig.attention_impl``):
+``"naive"`` materialises the scores, ``"blocked"`` is the online softmax
+over KV blocks in plain PyTorch, and ``"pallas"`` (the name kept from
+``repro``) is the hand-written flash attention kernel
+(:mod:`repro_torch.kernels.flash_attention`).  Decode attends one query step
+over the KV cache with :func:`naive_attention`, as ``repro`` does; no kernel
+runs there.  MLA and cross-attention wait for later slices (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.common import apply_rope, dense_init, params, rms_norm
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# core attention math
+# ---------------------------------------------------------------------------
+
+
+def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Reference full-materialisation attention.
+
+    q: (B, T, KH, G, dh); k, v: (B, S, KH, dh).
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("btkgd,bskd->btkgs", q.float(), k.float()) * scale
+    if causal:
+        tpos = q_offset + torch.arange(q.shape[1], device=q.device)
+        spos = torch.arange(k.shape[1], device=q.device)
+        mask = tpos[:, None] >= spos[None, :]
+        scores = scores.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("btkgs,bskd->btkgd", w, v.float())
+    return out.to(q.dtype)
+
+
+def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV blocks (flash-style, plain PyTorch).
+
+    q: (B, T, KH, G, dk); k: (B, S, KH, dk); v: (B, S, KH, dv)  →  (B, T, KH, G, dv)
+    """
+    B, T, KH, G, dk = q.shape
+    dv = v.shape[-1]
+    S = k.shape[1]
+    scale = 1.0 / math.sqrt(dk)
+    nblk = (S + block_k - 1) // block_k
+    pad = nblk * block_k - S
+    if pad:
+        k = nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float()
+    tpos = q_offset + torch.arange(T, device=q.device)
+    m = torch.full((B, T, KH, G), float("-inf"), device=q.device)
+    l = torch.zeros((B, T, KH, G), device=q.device)
+    acc = torch.zeros((B, T, KH, G, dv), device=q.device)
+    for j in range(nblk):
+        kj = k[:, j * block_k:(j + 1) * block_k].float()
+        vj = v[:, j * block_k:(j + 1) * block_k].float()
+        s = torch.einsum("btkgd,bskd->btkgs", qf, kj) * scale
+        spos = j * block_k + torch.arange(block_k, device=q.device)
+        valid = spos < S
+        if causal:
+            mask = (tpos[:, None] >= spos[None, :]) & valid[None, :]
+        else:
+            mask = valid[None, :].expand(T, block_k)
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskd->btkgd", p, vj)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(q.dtype)
+
+
+def _run_attention(q, k, v, *, causal: bool, q_offset: int = 0, impl: str = "blocked",
+                   block_k: int = 512) -> torch.Tensor:
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if impl == "pallas":
+        return fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if impl == "blocked":
+        return blocked_attention(q, k, v, causal=causal, q_offset=q_offset, block_k=block_k)
+    raise ValueError(f"unknown attention_impl {impl!r} (naive | blocked | pallas)")
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+class GQAConfig(NamedTuple):
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    causal: bool = True
+    attention_impl: str = "blocked"   # naive | blocked | pallas (the CUDA kernel)
+    block_k: int = 512
+
+
+def init_gqa(cfg: GQAConfig, *, dtype=torch.float32, device=None,
+             generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    p = {
+        "wq": dense_init((D, H, hd), in_axis=0, **kw),
+        "wk": dense_init((D, KH, hd), in_axis=0, **kw),
+        "wv": dense_init((D, KH, hd), in_axis=0, **kw),
+        "wo": dense_init((H, hd, D), in_axis=1, **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((KH, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((KH, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return params(p)
+
+
+def _gqa_qkv(p, x, cfg: GQAConfig, positions):
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attend(p, x, cfg: GQAConfig, *, positions=None) -> torch.Tensor:
+    """Full-sequence (train / prefill) self-attention."""
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _gqa_qkv(p, x, cfg, positions)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, T, cfg.n_kv_heads, G, cfg.head_dim)
+    out = _run_attention(qg, k, v, causal=cfg.causal, impl=cfg.attention_impl,
+                         block_k=cfg.block_k)
+    out = out.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S, KH, hd)
+    v: torch.Tensor
+    # position is tracked by the caller (one scalar for the whole stack)
+
+
+def init_gqa_cache(cfg: GQAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None, quantized: bool = False) -> KVCache:
+    if quantized:
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP Queue 1 item 11, deferred item 4)")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def gqa_decode(p, cache: KVCache, x_t, cfg: GQAConfig, pos: int):
+    """One-token decode: x_t (B, 1, D), pos int — returns (cache, out).
+
+    The new K/V are written into ``cache`` in place (what the JAX package
+    gets from donating the cache), and the same cache is returned."""
+    B = x_t.shape[0]
+    positions = torch.full((B, 1), pos, device=x_t.device)
+    q, k_t, v_t = _gqa_qkv(p, x_t, cfg, positions)
+    cache.k[:, pos:pos + 1] = k_t.to(cache.k.dtype)
+    cache.v[:, pos:pos + 1] = v_t.to(cache.v.dtype)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, 1, cfg.n_kv_heads, G, cfg.head_dim)
+    # mask out cache positions beyond pos via the causal mask with q_offset=pos
+    out = naive_attention(qg, cache.k, cache.v, causal=True, q_offset=pos)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    return cache, torch.einsum("bthk,hkd->btd", out, p["wo"])

@@ -42,6 +42,17 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/core/session.py" in names
+    lm = ["configs/__init__.py", "configs/base.py", "configs/qwen3_1_7b.py",
+          "configs/mamba2_2_7b.py", "models/common.py", "models/attention.py",
+          "models/ffn.py", "models/mamba.py", "models/build.py", "models/convert.py",
+          "kernels/flash_attention/ref.py", "kernels/flash_attention/ops.py",
+          "kernels/flash_attention/kernel.py", "kernels/ssd_scan/ref.py",
+          "kernels/ssd_scan/ops.py", "kernels/ssd_scan/kernel.py", "launch/steps.py",
+          "launch/serve.py"]
+    missing = [f for f in lm if f"src/repro_torch/{f}" not in names]
+    assert not missing, missing
+    for source in ("flash_attention.cu", "ssd_scan.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / source).is_file(), source
     assert len(PORT_FILES) > 20
 
 

@@ -1,0 +1,288 @@
+"""The port's LM serving path against repro on the same weights and inputs.
+
+Weights come from repro's ``init`` and are carried across by
+``load_jax_params``; inputs are numpy draws.  JAX runs its ``"pallas"``
+implementations in interpret mode where a test names them, the port its
+plain versions on the CPU.  Modules are held to rtol/atol 1e-5, whole
+models' logits to 1e-4.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import ffn as jffn  # noqa: E402
+from repro.models import mamba as jmamba  # noqa: E402
+from repro.models.build import build_model as jax_build_model  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.models import attention, common, ffn, mamba  # noqa: E402
+from repro_torch.models import build_model, load_jax_params  # noqa: E402
+from repro_torch.models.common import params  # noqa: E402
+
+MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+SERVED = {"qwen3-1.7b": dict(attention_impl="pallas"),
+          "mamba2-2.7b": dict(ssd_impl="pallas")}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _perturbed(tree, seed):
+    """``tree`` with every leaf replaced by a numpy draw of its shape: biases
+    and norm scales leave their zeros/ones, so the test sees them."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: (np.asarray(a) + 0.1 * rng.normal(size=a.shape))
+                        .astype(np.float32), tree)
+
+
+def _torch_params(tree) -> torch.nn.ParameterDict:
+    return params({k: torch.from_numpy(np.array(v)) for k, v in tree.items()})
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+# -- common ---------------------------------------------------------------------
+
+
+def test_rms_norm_and_layer_norm_vs_repro():
+    x, scale, bias = _x((2, 5, 16)), _x((16,), 1), _x((16,), 2)
+    np.testing.assert_allclose(
+        common.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
+        np.asarray(jcommon.rms_norm(jnp.asarray(x), jnp.asarray(scale))), **MODULE_TOL)
+    np.testing.assert_allclose(
+        common.layer_norm(*map(torch.from_numpy, (x, scale, bias))).numpy(),
+        np.asarray(jcommon.layer_norm(*map(jnp.asarray, (x, scale, bias)))), **MODULE_TOL)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 1000000.0])
+def test_apply_rope_vs_repro(theta):
+    x = _x((2, 12, 3, 16))
+    pos = np.arange(12, dtype=np.int32)[None].repeat(2, 0) + np.array([[0], [7]], np.int32)
+    np.testing.assert_allclose(
+        common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta).numpy(),
+        np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)), **MODULE_TOL)
+
+
+# -- attention -------------------------------------------------------------------
+
+
+def _gqa_pair(impl):
+    kw = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qk_norm=True,
+              qkv_bias=True, rope_theta=10000.0, attention_impl=impl, block_k=8)
+    jp = _perturbed(jattn.init_gqa(jax.random.PRNGKey(0), jattn.GQAConfig(**kw)), 1)
+    return jattn.GQAConfig(**kw), attention.GQAConfig(**kw), jp
+
+
+@pytest.mark.parametrize("impl", ["naive", "blocked", "pallas"])
+def test_gqa_attend_vs_repro(impl):
+    jcfg, tcfg, jp = _gqa_pair(impl)
+    x = _x((2, 20, 32), 3)
+    ref = jax.jit(jattn.gqa_attend, static_argnums=2)(jp, jnp.asarray(x), jcfg)
+    out = attention.gqa_attend(_torch_params(jp), torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODULE_TOL)
+
+
+def test_gqa_decode_vs_repro():
+    jcfg, tcfg, jp = _gqa_pair("naive")
+    tp = _torch_params(jp)
+    jdecode = jax.jit(jattn.gqa_decode, static_argnums=3)
+    jcache = jattn.init_gqa_cache(jcfg, 2, 8, dtype=jnp.float32)
+    tcache = attention.init_gqa_cache(tcfg, 2, 8, dtype=torch.float32)
+    for pos in range(6):
+        x = _x((2, 1, 32), 10 + pos)
+        jcache, jy = jdecode(jp, jcache, jnp.asarray(x), jcfg, pos)
+        tcache, ty = attention.gqa_decode(tp, tcache, torch.from_numpy(x), tcfg, pos)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **MODULE_TOL)
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k), **MODULE_TOL)
+    np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v), **MODULE_TOL)
+
+
+# -- ffn -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,bias", [("swiglu", False), ("gelu", True)])
+def test_dense_ffn_vs_repro(kind, bias):
+    jp = _perturbed(jffn.init_dense_ffn(jax.random.PRNGKey(1), 16, 40, kind=kind, bias=bias), 2)
+    x = _x((3, 4, 16), 4)
+    ref = jax.jit(jffn.dense_ffn, static_argnames="kind")(jp, jnp.asarray(x), kind=kind)
+    out = ffn.dense_ffn(_torch_params(jp), torch.from_numpy(x), kind=kind)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODULE_TOL)
+
+
+# -- mamba -----------------------------------------------------------------------
+
+
+def _ssm_pair(impl="chunked"):
+    kw = dict(d_model=16, d_state=8, head_dim=8, expand=2, n_groups=2, chunk=8, ssd_impl=impl)
+    jp = jmamba.init_mamba2(jax.random.PRNGKey(2), jmamba.SSMConfig(**kw))
+    jp = dict(_np_tree(jp), conv_b=_x((64,), 5) * 0.1, norm=1.0 + 0.1 * _x((32,), 6),
+              dt_bias=0.1 * _x((4,), 7))
+    return jmamba.SSMConfig(**kw), mamba.SSMConfig(**kw), jp
+
+
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+def test_mamba2_forward_vs_repro(impl):
+    jcfg, tcfg, jp = _ssm_pair(impl)
+    x = _x((2, 24, 16), 8)
+    ref = jax.jit(jmamba.mamba2_forward, static_argnums=2)(jp, jnp.asarray(x), jcfg)
+    out = mamba.mamba2_forward(_torch_params(jp), torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODULE_TOL)
+
+
+def test_mamba2_decode_vs_repro():
+    jcfg, tcfg, jp = _ssm_pair()
+    tp = _torch_params(jp)
+    jdecode = jax.jit(jmamba.mamba2_decode, static_argnums=3)
+    jcache = jmamba.init_mamba_cache(jcfg, 2)
+    tcache = mamba.init_mamba_cache(tcfg, 2)
+    for t in range(5):
+        x = _x((2, 1, 16), 20 + t)
+        jcache, jy = jdecode(jp, jcache, jnp.asarray(x), jcfg)
+        tcache, ty = mamba.mamba2_decode(tp, tcache, torch.from_numpy(x), tcfg)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **MODULE_TOL)
+    np.testing.assert_allclose(tcache.ssm.numpy(), np.asarray(jcache.ssm), **MODULE_TOL)
+    np.testing.assert_allclose(tcache.conv.numpy(), np.asarray(jcache.conv), **MODULE_TOL)
+
+
+def test_mamba2_forward_needs_whole_chunks():
+    _, tcfg, jp = _ssm_pair()
+    with pytest.raises(ValueError, match="T % chunk"):
+        mamba.mamba2_forward(_torch_params(jp), torch.zeros(1, 12, 16), tcfg)
+
+
+# -- whole models --------------------------------------------------------------------
+
+
+def _model_pair(arch, **overrides):
+    jcfg = jconfigs.smoke_config(jconfigs.get_arch(arch)).replace(**overrides)
+    tcfg = configs.smoke_config(configs.get_arch(arch)).replace(**overrides)
+    jm = jax_build_model(jcfg)
+    jp = _np_tree(jm.init(jax.random.PRNGKey(0)))
+    tm = load_jax_params(build_model(tcfg, device="cpu"), jp)
+    return jm, jp, tm
+
+
+def _tokens(shape, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, size=shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch,overrides", list(SERVED.items()) + [
+    ("starcoder2-3b", dict(attention_impl="naive")),
+    ("qwen3-1.7b", dict(attention_impl="blocked", prefill_last_only=True))])
+def test_forward_vs_repro(arch, overrides):
+    """Prefill logits: JAX on its kernels in interpret mode, the port on their
+    plain versions (starcoder2 adds LayerNorm, GELU and biases)."""
+    jm, jp, tm = _model_pair(arch, **overrides)
+    toks = _tokens((2, 16), tm.cfg.vocab)
+    ref = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    out = make_prefill_step(tm)({"tokens": torch.from_numpy(toks)})
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_decode_logits_vs_repro(arch):
+    """Logits of every decode step over a prompt and its greedy continuation."""
+    jm, jp, tm = _model_pair(arch)
+    B, prompt_len, gen = 2, 6, 5
+    prompt = _tokens((B, prompt_len), tm.cfg.vocab, seed=1)
+    jdecode = jax.jit(jm.decode_step)
+    tdecode = make_decode_step(tm)
+    jcache, tcache = jm.init_cache(B, prompt_len + gen), tm.init_cache(B, prompt_len + gen)
+    tok = prompt[:, :1]
+    for pos in range(prompt_len + gen):
+        jl, jcache = jdecode(jp, jcache, jnp.asarray(tok), pos)
+        tl, tcache = tdecode({"cache": tcache, "tokens": torch.from_numpy(tok), "pos": pos})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
+        tok = (prompt[:, pos + 1:pos + 2] if pos + 1 < prompt_len
+               else np.asarray(jl[:, -1].argmax(-1))[:, None].astype(np.int32))
+
+
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_serve_tokens_match_repro(arch, monkeypatch, capsys):
+    """The serving schedule: the same prompts (numpy, from the seed), prefill
+    by decode, greedy decode — the same tokens as repro's serve when the port
+    is given repro's weights for that seed."""
+    seed = 3
+
+    def build_with_jax_weights(cfg, device=None, generator=None):
+        jp = _np_tree(jax_build_model(jconfigs.smoke_config(jconfigs.get_arch(arch)))
+                      .init(jax.random.PRNGKey(seed)))
+        return load_jax_params(build_model(cfg, device=device), jp)
+
+    ref = jserve.serve(arch, smoke=True, batch=2, prompt_len=5, gen=6, seed=seed)
+    monkeypatch.setattr(tserve, "build_model", build_with_jax_weights)
+    out = tserve.serve(arch, smoke=True, batch=2, prompt_len=5, gen=6, seed=seed, device="cpu")
+    assert out.shape == (2, 6)
+    np.testing.assert_array_equal(out, np.asarray(ref))
+    assert capsys.readouterr().out.count("[serve] prefill 5 toks") == 2
+
+
+# -- configs, devices and what is deferred ---------------------------------------------
+
+
+def test_configs_are_repro_configs():
+    assert set(configs.ARCHS) == set(jconfigs.ARCHS)
+    for name, cfg in configs.ARCHS.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfigs.ARCHS[name])
+        assert (dataclasses.asdict(configs.smoke_config(cfg))
+                == dataclasses.asdict(jconfigs.smoke_config(jconfigs.ARCHS[name])))
+    assert {k: dataclasses.astuple(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
+
+
+def test_entry_points_need_a_gpu_by_default(monkeypatch):
+    """device=None means the card: without one, build_model and serve raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.smoke_config(configs.get_arch("qwen3-1.7b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.serve("mamba2-2.7b")
+
+
+@pytest.mark.parametrize("name", sorted(n for n, c in configs.ARCHS.items()
+                                        if c.family not in ("dense", "ssm")
+                                        or c.attn_kind == "mla"))
+def test_deferred_archs_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(configs.smoke_config(configs.get_arch(name)), device="cpu")
+
+
+def test_int8_kv_cache_is_deferred():
+    cfg = configs.smoke_config(configs.get_arch("qwen3-1.7b")).replace(kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        build_model(cfg, device="cpu")
+
+
+def test_load_jax_params_checks_names_and_shapes():
+    jm, jp, tm = _model_pair("mamba2-2.7b")
+    bad = dict(jp, head={"w": np.zeros((3, 3), np.float32)})
+    with pytest.raises(ValueError, match="/head/w"):
+        load_jax_params(tm, bad)
+    with pytest.raises(KeyError, match="final_norm"):
+        load_jax_params(tm, {k: v for k, v in jp.items() if k != "final_norm"})
