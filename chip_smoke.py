@@ -13,21 +13,29 @@ Phases, in order; any failure raises and the run exits non-zero:
              shapes the main path gives each kernel.  fused_topk_scatter and
              both topk_compress bodies must be bit-exact (and the two bodies
              equal to each other); kmeans_assign must give the same
-             assignments and dist² within 1e-5 relative.  Each is timed
-             (median of CUDA-event timings) beside its plain version, its
-             bound and, where one PyTorch call computes the same function,
-             that call.  flash_attention (fp32 and bf16) and ssd_scan are
-             held to test_kernels.py's tolerances at its shapes and at the
-             shapes the LM main path gives them.
+             assignments and dist² within 1e-5 relative.  accumulate_blocked
+             must be bit-exact in fp32 (within 3e-2 in bf16), and
+             sparse_scatter_add bit-exact on the accumulator's pairs (within
+             rtol 1e-5, atol 1e-6 where one row repeats an index).  Each is
+             timed (median of CUDA-event timings of one call) beside its plain
+             version, its bound and, where one PyTorch call computes the
+             same function, that call; the short ones also by CUDA-graph
+             replay, which leaves the host's part of a call out.
+             flash_attention (fp32 and bf16) and ssd_scan are held to
+             test_kernels.py's tolerances at its shapes and at the shapes
+             the LM main path gives them.
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
-             graph (AUTO, SPARSE fused, SPARSE unfused), kmeans on the
-             Covertype shape with the kernel (plus four uncounted runs from
-             the default init, whose spread is printed), logreg with
-             sparse_k fused and unfused.  Launch counters are zeroed just
-             before each run and read just after; every kernel must have
-             been launched.  A small run of each app is also held against
-             its single-thread reference on the CPU.
+             graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
+             fp64 credit scatter timed beside sparse_scatter_add in fp32),
+             kmeans on the Covertype shape with the kernel (plus four
+             uncounted runs from the default init, whose spread is printed),
+             logreg with sparse_k fused and unfused, nmf on Netflix's 17,770
+             movie columns (AUTO and reduce_scatter).  Launch counters are
+             zeroed just before each run and read just after; every kernel
+             must have been launched, the counts each run must give are
+             asserted.  A small run of each app is also held against its
+             single-thread reference on the CPU.
 5. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
              their full published configs, random weights from a fixed
              generator, device left at its default: (a) make_prefill_step on
@@ -57,12 +65,15 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import card_info  # noqa: E402
-from repro_torch.analytics import kmeans, logreg, pagerank  # noqa: E402
+from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import HostBackend, Session  # noqa: E402
-from repro_torch.core.sparse import block_layout  # noqa: E402
-from repro_torch.data import kmeans_dataset, logreg_dataset, powerlaw_graph  # noqa: E402
+from repro_torch.core.sparse import block_layout, blocked_topk_sparsify  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    kmeans_dataset, logreg_dataset, nmf_dataset, partition_rows, powerlaw_graph)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.accumulate.kernel import accumulate_blocked  # noqa: E402
+from repro_torch.kernels.accumulate.ref import accumulate_plain  # noqa: E402
 from repro_torch.kernels.accumulate.fused_scatter import (  # noqa: E402
     fused_topk_scatter, fused_topk_scatter_plain)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -72,6 +83,8 @@ from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: 
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
+from repro_torch.kernels.sparse_update.kernel import sparse_scatter_add  # noqa: E402
+from repro_torch.kernels.sparse_update.ref import sparse_scatter_add_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
     BITONIC_MIN_K, topk_compress, topk_compress_plain)
@@ -96,6 +109,16 @@ COV_ROWS, COV_FEATURES, COV_K = 581_012, 54, 7
 # JAX package's tests step 1e-3 over 400 rows)
 LR_ROWS, LR_FEATURES, LR_K = 1_000_000, 512, 32
 LR_STEP = 0.4 / LR_ROWS
+# nmf: the Netflix prize matrix is 480,189 users x 17,770 movies; the movie
+# columns are kept whole and the users cut to 50,000, so that the host can
+# make R (3.55 GB of fp32) from the seed; rank 64
+NETFLIX_USERS, NMF_ROWS, NMF_COLS, NMF_RANK = 480_189, 50_000, 17_770, 64
+NMF_ROUND = NMF_RANK * NMF_COLS + NMF_RANK ** 2     # the Q round: k·m + k² floats
+# nmf_dataset(seed) and fit(seed) draw P then Q from one stream: from the
+# data's own seed the fit would start at the true factors
+NMF_INIT_SEED = SEED + 1
+ACC_TOL = {torch.float32: None, torch.bfloat16: 3e-2}      # test_kernels.py:13
+SCATTER_TOL = dict(rtol=1e-5, atol=1e-6)                   # test_kernels.py:155
 
 KERNELS = {
     "fused_topk_scatter": ("src/repro_torch/csrc/fused_scatter.cu",
@@ -110,6 +133,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:70"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:62"),
+    "accumulate_blocked": ("src/repro_torch/csrc/accumulate.cu",
+                           "src/repro/kernels/accumulate/kernel.py:23"),
+    "sparse_scatter_add": ("src/repro_torch/csrc/scatter_add.cu",
+                           "src/repro/kernels/sparse_update/kernel.py:39"),
 }
 
 # the LM serving path: each model at its full published config, with the
@@ -139,6 +166,31 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call: ``fn`` captured once in a CUDA graph, the
+    graph replayed ``reps`` times between two CUDA events.  Where a call's
+    host work (Python, the wrapper's checks, the launch) outlasts its device
+    work, :func:`time_ms` reads the host; this reads the device alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple:
@@ -190,6 +242,7 @@ def check_kernels(rng) -> dict:
         per_shape[app] = dict(
             shape=f"x ({N_THREADS}, {v}) f32, block_eff={be}, per_block={pb}",
             ms=time_ms(lambda: fused_topk_scatter(x, per_block=pb, block_eff=be), 20),
+            device_ms=graph_ms(lambda: fused_topk_scatter(x, per_block=pb, block_eff=be), 20),
             plain_ms=time_ms(lambda: fused_topk_scatter_plain(x, pb, be), 5),
             bound_ms=t, bound_by=by, library_ms=None)
     log("fused_topk_scatter per main-path shape:", json.dumps(per_shape))
@@ -234,7 +287,10 @@ def check_kernels(rng) -> dict:
             max_abs_err=err[method], ms=per_method[method],
             plain_ms=time_ms(lambda: topk_compress_plain(x, pb, be), 5),
             bound_ms=t, bound_by=by,
-            library_ms=time_ms(lambda: torch.topk(mags, pb, dim=1), 20))
+            library_ms=time_ms(lambda: torch.topk(mags, pb, dim=1), 20),
+            device_ms=graph_ms(lambda: topk_compress(x, k_per_block=pb, block_v=be,
+                                                     method=method), 50),
+            library_device_ms=graph_ms(lambda: torch.topk(mags, pb, dim=1), 50))
     # the BITONIC_MIN_K evidence: both bodies over k_per_block on 1024-lane
     # blocks of the pagerank-sized vector
     x = rng_sparse(rng, (LJ_VERTICES,), 0.3)
@@ -266,8 +322,99 @@ def check_kernels(rng) -> dict:
         shape=f"points ({n}, {d}) f32, centers ({k}, {d})",
         max_abs_err=float((dist - pd).abs().max()),
         ms=time_ms(lambda: kmeans_assign(pts, ctr), 20),
+        device_ms=graph_ms(lambda: kmeans_assign(pts, ctr), 50),
         plain_ms=time_ms(lambda: kmeans_assign_plain(pts, ctr), 20),
         bound_ms=t, bound_by=by, library_ms=None)
+    return results
+
+
+def check_receive(rng) -> dict:
+    """accumulate_blocked and sparse_scatter_add against their plain versions
+    at test_kernels.py's sweeps and at the shapes the main path gives them,
+    each timed there."""
+    results = {}
+    # G: accumulate_blocked — the sweep in fp32 (bit-exact) and bf16, as the
+    # (N, V) tensor and as N separate rows; 70 rows exceed the pointer list
+    for n, v, bv in [(4, 1024, 256), (7, 3000, 512), (1, 128, 128), (70, 1001, 1024)]:
+        x = cuda_normal(rng, (n, v))
+        for dtype, tol in ACC_TOL.items():
+            xd = x.to(dtype)
+            ref = accumulate_plain(xd)
+            for form in (xd, [r.clone() for r in xd]):
+                got = accumulate_blocked(form, block_v=bv)
+                if tol is not None:
+                    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+                elif not torch.equal(got, ref):
+                    raise AssertionError(f"accumulate_blocked differs at {(n, v, bv)}")
+    # main paths: the dense round of pagerank AUTO (4 credit vectors of V =
+    # 4,847,571) and of nmf AUTO (4 x k·m + k²), each as the accumulator
+    # holds it — N separate tensors — and stacked
+    per_shape = {}
+    for app, v in (("pagerank", LJ_VERTICES), ("nmf", NMF_ROUND)):
+        rows = [cuda_normal(rng, (v,)) for _ in range(N_THREADS)]
+        x = torch.stack(rows)
+        got, ref = accumulate_blocked(rows), accumulate_plain(rows)
+        if not (torch.equal(got, ref) and torch.equal(accumulate_blocked(x), ref)):
+            raise AssertionError(f"accumulate_blocked differs at the {app} shape")
+        t, by = bound_ms((N_THREADS + 1) * v * 4)
+        per_shape[app] = dict(
+            shape=f"{N_THREADS} rows of ({v},) f32",
+            max_abs_err=float((got - ref).abs().max()),
+            ms=time_ms(lambda: accumulate_blocked(rows), 20),
+            plain_ms=time_ms(lambda: accumulate_plain(rows), 20),
+            bound_ms=t, bound_by=by,
+            library_ms=time_ms(lambda: torch.sum(x, dim=0), 20),
+            device_ms=graph_ms(lambda: accumulate_blocked(rows), 50),
+            library_device_ms=graph_ms(lambda: torch.sum(x, dim=0), 50))
+    log("accumulate_blocked per main-path shape:", json.dumps(per_shape))
+    results["accumulate_blocked"] = per_shape["pagerank"]
+
+    # H: sparse_scatter_add — the sweep's random indices repeat inside the
+    # row (held to the tolerance), the duplicates case, indices out of range
+    dev = torch.device("cuda")
+    for m, v, bv in [(50, 700, 256), (200, 4096, 1024), (1, 64, 64)]:
+        idx = torch.from_numpy(rng.integers(0, v, size=(m,)).astype(np.int32)).to(dev)
+        vals = cuda_normal(rng, (m,))
+        torch.testing.assert_close(sparse_scatter_add(idx, vals, v, block_v=bv),
+                                   sparse_scatter_add_plain(idx, vals, v), **SCATTER_TOL)
+    idx = torch.tensor([3, 3, 3, 0, -1, 8, 100], dtype=torch.int32, device=dev)
+    vals = torch.tensor([1.0, 2.0, 3.0, 5.0, 7.0, 11.0, 13.0], device=dev)
+    got = sparse_scatter_add(idx, vals, 8, block_v=8)
+    if got.tolist() != [5.0, 0.0, 0.0, 6.0, 0.0, 0.0, 0.0, 0.0]:
+        raise AssertionError(f"sparse_scatter_add duplicates / out of range: {got.tolist()}")
+    # the accumulator's pairs, bit-exact: (V, k) = (1030, 600) pads its last
+    # block with 294 (0, 0.0) pairs per row; then the main paths, the
+    # unfused rounds of pagerank (k = V/4) and logreg (k = 32), from real
+    # compressions
+    per_shape = {}
+    for app, (v, kk, density) in (("padded", (1030, 600, 0.5)),
+                                  ("pagerank", (LJ_VERTICES, LJ_VERTICES // 4, 0.3)),
+                                  ("logreg", (LR_FEATURES, LR_K, 1.0))):
+        pairs = [blocked_topk_sparsify(rng_sparse(rng, (v,), density), kk)
+                 for _ in range(N_THREADS)]
+        idx = torch.stack([p.idx for p in pairs])
+        vals = torch.stack([p.vals for p in pairs])
+        got, ref = sparse_scatter_add(idx, vals, v), sparse_scatter_add_plain(idx, vals, v)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"sparse_scatter_add differs on the {app} pairs")
+        if app == "padded":
+            continue
+        t, by = bound_ms(idx.numel() * (4 + 4) + v * 4)
+        flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
+        per_shape[app] = dict(
+            shape=f"idx/vals ({N_THREADS}, {idx.shape[1]}) int32/f32 into {v} "
+                  f"({N_THREADS} launches)",
+            max_abs_err=float((got - ref).abs().max()),
+            ms=time_ms(lambda: sparse_scatter_add(idx, vals, v), 20),
+            plain_ms=time_ms(lambda: sparse_scatter_add_plain(idx, vals, v), 5),
+            bound_ms=t, bound_by=by,
+            library_ms=time_ms(lambda: torch.zeros(v, device=dev).index_add_(
+                0, flat_i, flat_v), 20),
+            device_ms=graph_ms(lambda: sparse_scatter_add(idx, vals, v), 50),
+            library_device_ms=graph_ms(lambda: torch.zeros(v, device=dev).index_add_(
+                0, flat_i, flat_v), 50))
+    log("sparse_scatter_add per main-path shape:", json.dumps(per_shape))
+    results["sparse_scatter_add"] = per_shape["pagerank"]
     return results
 
 
@@ -426,6 +573,11 @@ def small_reference_checks() -> None:
     c, _ = kmeans.fit(xk, 5, iters=6, seed=1, use_kernel=True)
     np.testing.assert_allclose(c, kmeans.fit_reference(xk, 5, 6, 1, device="cpu"),
                                rtol=1e-3, atol=1e-3, err_msg="kmeans small")
+    r, _, _ = nmf_dataset(120, 32, 4, seed=2)
+    p, q, _ = nmf.fit(r, 4, iters=ITERS, seed=3, mode="auto")
+    pr, qr = nmf.fit_reference(r, 4, ITERS, 3, device="cpu")
+    np.testing.assert_allclose(nmf.frob_loss(r, p, q), nmf.frob_loss(r, pr, qr, device="cpu"),
+                               rtol=1e-2, err_msg="nmf small")      # test_analytics.py:53
     big = torch.from_numpy(powerlaw_graph(200_000, 14, seed=1)).long().cuda()
     ranks = torch.rand(200_000, generator=torch.Generator().manual_seed(SEED)).cuda()
     deg = torch.ones(200_000, device="cuda")
@@ -434,8 +586,39 @@ def small_reference_checks() -> None:
     for other in runs[1:]:
         torch.testing.assert_close(other, runs[0], rtol=ulp, atol=0.0)
     log("small reference checks: pagerank, logreg (sparse, lossless), kmeans "
-        "(kernel) agree with their CPU references; the credits scatter "
-        "repeats to within one fp32 ulp")
+        "(kernel), nmf (auto) agree with their CPU references; the credits "
+        "scatter repeats to within one fp32 ulp")
+
+
+def time_credits(edges) -> None:
+    """One thread's share of a pagerank round at LiveJournal scale: its
+    quarter of the edges through pagerank._credits (fp64 index_add_, then
+    one rounding to fp32), the fp64 index_add_ alone, and the same (dst, w)
+    in fp32 through index_add_ and through sparse_scatter_add.  Timing only:
+    pagerank keeps its fp64 sum, and these launches are not counted."""
+    dev = torch.device("cuda")
+    lo, hi = partition_rows(edges.shape[0], 0, N_THREADS)
+    e = torch.from_numpy(edges[lo:hi]).to(dev).long()
+    src, dst = e[:, 0], e[:, 1]
+    deg = pagerank._out_degree(torch.from_numpy(edges[:, 0]).to(dev).long(), LJ_VERTICES)
+    ranks = torch.full((LJ_VERTICES,), 1.0 / LJ_VERTICES, device=dev)
+    w32 = ranks[src] / deg[src]
+    w64 = w32.double()
+    f64 = torch.zeros(LJ_VERTICES, dtype=torch.float64, device=dev).index_add_(0, dst, w64)
+    kern = sparse_scatter_add(dst, w32, LJ_VERTICES)
+    top = int(torch.bincount(dst, minlength=LJ_VERTICES).max())
+    times = {
+        "credits (fp64 index_add_, whole function)": time_ms(
+            lambda: pagerank._credits(src, dst, ranks, deg, LJ_VERTICES), 10),
+        "fp64 index_add_": time_ms(lambda: torch.zeros(
+            LJ_VERTICES, dtype=torch.float64, device=dev).index_add_(0, dst, w64), 10),
+        "fp32 index_add_": time_ms(lambda: torch.zeros(
+            LJ_VERTICES, device=dev).index_add_(0, dst, w32), 10),
+        "fp32 sparse_scatter_add": time_ms(
+            lambda: sparse_scatter_add(dst, w32, LJ_VERTICES), 10)}
+    rel = float(((kern.double() - f64).abs() / f64.abs().clamp_min(1e-30)).max())
+    log(f"pagerank credits, one thread ({e.shape[0]} edges, {top} into the most popular "
+        f"vertex), ms: {json.dumps(times)}; sparse_scatter_add vs fp64 max rel diff {rel:.3e}")
 
 
 def session(fused: bool = True) -> Session:
@@ -472,15 +655,19 @@ def run_apps() -> dict:
     edges = powerlaw_graph(LJ_VERTICES, LJ_DEGREE, seed=SEED)
     log(f"pagerank graph: {LJ_VERTICES} vertices, {edges.shape[0]} edges "
         f"(made in {time.perf_counter() - t0:.1f} s)")
+    time_credits(edges)
     traced = Session(n_nodes=N_NODES, threads_per_node=THREADS_PER_NODE, trace=True)
     try:
-        (r_auto, s_auto), _ = run_app("pagerank auto", counts, lambda: pagerank.fit(
+        (r_auto, s_auto), launched = run_app("pagerank auto", counts, lambda: pagerank.fit(
             edges, LJ_VERTICES, iters=ITERS, mode="auto", session=traced))
         branches = [sp["args"]["mode"] for sp in
                     traced.tracer.spans("accumulate-round", "accumulate.round")]
     finally:
         traced.tracer.disable()
     log(f"pagerank auto: branch per round {branches}, wire {s_auto.wire_traffic()}")
+    # every round at this scale takes the dense branch: one fold each
+    expect_launches("pagerank auto", launched, {"accumulate_blocked": ITERS,
+                                                "fused_topk_scatter": 0})
     if len(branches) != ITERS:
         raise AssertionError(f"pagerank auto: {len(branches)} rounds traced")
     r_ref = pagerank.fit_reference(edges, LJ_VERTICES, ITERS)
@@ -490,11 +677,15 @@ def run_apps() -> dict:
     k = LJ_VERTICES // 4
     (r_f, s_f), launched = run_app("pagerank sparse fused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(True)))
-    expect_launches("pagerank sparse fused", launched, {"fused_topk_scatter": ITERS})
+    expect_launches("pagerank sparse fused", launched, {"fused_topk_scatter": ITERS,
+                                                        "sparse_scatter_add": 0})
     (r_u, s_u), launched = run_app("pagerank sparse unfused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(False)))
+    # unfused: one compression per thread and one scatter launch per
+    # thread's pairs each round
     expect_launches("pagerank sparse unfused", launched,
-                    {"topk_compress_bitonic": ITERS * N_THREADS, "fused_topk_scatter": 0})
+                    {"topk_compress_bitonic": ITERS * N_THREADS, "fused_topk_scatter": 0,
+                     "sparse_scatter_add": ITERS * N_THREADS})
     close(r_f, r_u, "pagerank sparse fused vs unfused")
     if s_f.wire_traffic() != s_u.wire_traffic():
         raise AssertionError("pagerank: fused and unfused wire traffic differ")
@@ -539,7 +730,8 @@ def run_apps() -> dict:
     (th_u, s_u), launched = run_app("logreg sparse unfused", counts, lambda: logreg.fit(
         x, y, iters=ITERS, lr=LR_STEP, mode="sparse", k=LR_K, session=session(False)))
     expect_launches("logreg sparse unfused", launched,
-                    {"topk_compress_argmax": ITERS * N_THREADS})
+                    {"topk_compress_argmax": ITERS * N_THREADS,
+                     "sparse_scatter_add": ITERS * N_THREADS})
     close(th_f, th_u, "logreg sparse fused vs unfused")
     if s_f.wire_traffic() != s_u.wire_traffic():
         raise AssertionError("logreg: fused and unfused wire traffic differ")
@@ -548,6 +740,39 @@ def run_apps() -> dict:
     if not (np.all(np.isfinite(th_f)) and loss1 < loss0):
         raise AssertionError(f"logreg: loss {loss1} not below the start's {loss0}")
     log(f"logreg: wire {s_f.wire_traffic()} (fused == unfused), loss {loss0:.4f} -> {loss1:.4f}")
+    del x, y
+
+    # -- nmf, Netflix's movie columns -----------------------------------------
+    t0 = time.perf_counter()
+    r, _, _ = nmf_dataset(NMF_ROWS, NMF_COLS, NMF_RANK, seed=SEED)
+    log(f"nmf: R ({NMF_ROWS}, {NMF_COLS}) f32, {r.nbytes / 1e9:.2f} GB (made in "
+        f"{time.perf_counter() - t0:.1f} s): Netflix's {NMF_COLS} movie columns in full, "
+        f"its {NETFLIX_USERS} users cut to {NMF_ROWS}; rank {NMF_RANK}, "
+        f"Q round {NMF_ROUND} floats")
+    (p_a, q_a, s_a), launched = run_app("nmf auto", counts, lambda: nmf.fit(
+        r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto", session=session()))
+    modes = {s_a.accumulator("q_partials").last_mode.value}
+    expect_launches("nmf auto", launched, {"accumulate_blocked": ITERS})
+    (p_d, q_d, s_d), launched = run_app("nmf reduce_scatter", counts, lambda: nmf.fit(
+        r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=session()))
+    expect_launches("nmf reduce_scatter", launched, {"accumulate_blocked": 0})
+    np.testing.assert_allclose(q_a, q_d, rtol=1e-4, err_msg="nmf Q, auto vs reduce_scatter")
+    if s_a.wire_traffic() != s_d.wire_traffic():
+        raise AssertionError("nmf: auto and reduce_scatter wire traffic differ")
+    for p, q in ((p_a, q_a), (p_d, q_d)):
+        if p.shape != (NMF_ROWS, NMF_RANK) or q.shape != (NMF_RANK, NMF_COLS) or not (
+                np.all(np.isfinite(p)) and np.all(np.isfinite(q))):
+            raise AssertionError("nmf: factors not finite or of the wrong shape")
+    p_r, q_r = nmf.fit_reference(r, NMF_RANK, ITERS, NMF_INIT_SEED)
+    loss0 = nmf.frob_loss(r, *nmf._init(NMF_ROWS, NMF_COLS, NMF_RANK, NMF_INIT_SEED))
+    loss_a, loss_r = nmf.frob_loss(r, p_a, q_a), nmf.frob_loss(r, p_r, q_r)
+    if not loss_a < loss0:
+        raise AssertionError(f"nmf: loss {loss_a} not below the start's {loss0}")
+    np.testing.assert_allclose(loss_a, loss_r, rtol=1e-2,        # test_analytics.py:53
+                               err_msg="nmf loss vs single-thread reference")
+    log(f"nmf: branch {modes}, wire {s_a.wire_traffic()} (auto == reduce_scatter), Q auto vs "
+        f"reduce_scatter max rel diff {float(np.max(np.abs(q_a - q_d) / np.abs(q_d))):.3e}, "
+        f"loss {loss0:.6g} -> {loss_a:.6g} (reference {loss_r:.6g})")
     return counts
 
 
@@ -668,10 +893,12 @@ def main() -> None:
     measured = check_kernels(rng)
     measured["flash_attention"] = check_flash(rng)
     measured["ssd_scan"] = check_ssd(rng)
+    measured.update(check_receive(rng))
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "
-            f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}")
+            f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "
+            f"graph replay {m.get('device_ms')} ms, library's {m.get('library_device_ms')} ms")
 
     counts = run_apps()
     for name, n in run_lm().items():

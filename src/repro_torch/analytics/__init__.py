@@ -1,6 +1,6 @@
-"""The paper's analytics apps on the port's host Session (nmf waits: it has
-no kernel and is not on this slice's path)."""
+"""The paper's four analytics apps (logreg / kmeans / nmf / pagerank) on the
+port's host Session."""
 
-from repro_torch.analytics import kmeans, logreg, pagerank
+from repro_torch.analytics import kmeans, logreg, nmf, pagerank
 
-__all__ = ["kmeans", "logreg", "pagerank"]
+__all__ = ["kmeans", "logreg", "nmf", "pagerank"]

@@ -1,0 +1,93 @@
+"""NMF (paper §6.6) on the Session facade: R ≈ P·Q, globally shared Q.
+
+Port of :mod:`repro.analytics.nmf`.  Multiplicative updates (Lee–Seung).
+With rows partitioned across threads, P's update is thread-local; Q's update
+needs two global reductions — numer = PᵀR (k×m) and gram = PᵀP (k×k) —
+which is precisely an accumulator workload: one round of k·m + k² floats.
+Under ``mode="auto"`` that round is dense on every iteration, so it is
+folded by the ``accumulate_blocked`` kernel.  The products are plain
+``torch.matmul``, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import AccumMode, Session
+from repro_torch.device import resolve_device, to_tensor
+
+_EPS = 1e-9
+
+
+def _update_p(p, q, r):
+    """P ← P ⊙ (RQᵀ) / (PQQᵀ)."""
+    return p * (r @ q.T) / (p @ (q @ q.T) + _EPS)
+
+
+def _q_partials(p, r):
+    return p.T @ r, p.T @ p            # numer (k,m), gram (k,k)
+
+
+def _init(n: int, m: int, k: int, seed: int):
+    """The initial P (n, k) and Q (k, m): the JAX package's stream, P then Q,
+    so that trajectories match."""
+    rng = np.random.default_rng(seed)
+    p = np.abs(rng.normal(size=(n, k))).astype(np.float32)
+    q = np.abs(rng.normal(size=(k, m))).astype(np.float32)
+    return p, q
+
+
+def frob_loss(r, p, q, device=None) -> float:
+    """‖R − PQ‖²_F per row."""
+    dev = resolve_device(device)
+    rt, pt, qt = (to_tensor(a, dev) for a in (r, p, q))
+    return float(torch.linalg.norm(rt - pt @ qt) ** 2 / rt.shape[0])
+
+
+def fit_reference(r, k: int, iters: int = 10, seed: int = 0, device=None):
+    """Single-thread oracle (same algorithm, no distribution)."""
+    dev = resolve_device(device)
+    p0, q0 = _init(r.shape[0], r.shape[1], k, seed)
+    p, q, rt = to_tensor(p0, dev), to_tensor(q0, dev), to_tensor(r, dev)
+    for _ in range(iters):
+        p = _update_p(p, q, rt)
+        numer, gram = _q_partials(p, rt)
+        q = q * numer / (gram @ q + _EPS)
+    return p.cpu().numpy(), q.cpu().numpy()
+
+
+def fit(r, k: int, *, iters: int = 10, seed: int = 0,
+        mode: Optional[AccumMode | str] = None,
+        session: Optional[Session] = None, backend: str = "host",
+        n_nodes: int = 2, threads_per_node: int = 2, device=None):
+    """Lee–Seung updates through the Table-1 facade.
+
+    Returns ``(p, q, session)``.
+    """
+    sess = session or Session(backend=backend, n_nodes=n_nodes,
+                              threads_per_node=threads_per_node, device=device)
+    n, m = r.shape
+    p_full0, q0 = _init(n, m, k, seed)
+    Q = sess.def_global("Q", q0)
+    q_partials = sess.new_array("q_partials", (k * m + k * k,))
+
+    def thread_proc(ctx, r_loc, p_loc):
+        def step(p):                        # thread-local P rides in the carry
+            with ctx.span("nmf.round"):
+                q = Q.get()
+                p = _update_p(p, q, r_loc)
+                numer, gram = _q_partials(p, r_loc)
+                flat = q_partials.accumulate(
+                    torch.cat([numer.reshape(-1), gram.reshape(-1)]), mode=mode)
+                numer_g = flat[: k * m].reshape(k, m)
+                gram_g = flat[k * m:].reshape(k, k)
+                Q.set(q * numer_g / (gram_g @ q + _EPS))
+            return p
+        return ctx.iterate(step, p_loc, iters)
+
+    ps = sess.run(thread_proc, data=(r, p_full0))
+    p_full = torch.cat([p.cpu() for p in ps]).numpy()
+    return p_full, Q.get().cpu().numpy(), sess

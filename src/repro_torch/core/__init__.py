@@ -17,6 +17,7 @@ from repro_torch.core.sparse import (
     pair_capacity,
     sparse_beneficial,
     sparse_beneficial_batch,
+    topk_sparsify,
 )
 from repro_torch.core.sync import DBarrier, DSemaphore, SSPClock
 from repro_torch.core.telemetry import NULL_TRACER, Tracer, as_tracer
@@ -31,5 +32,6 @@ __all__ = [
     "blocked_topk_accumulate", "blocked_topk_sparsify", "default_auto_k", "densify",
     "load_numpy_state", "make_address", "pair_capacity", "ring_hash",
     "sparse_beneficial", "sparse_beneficial_batch", "split_address", "telemetry",
+    "topk_sparsify",
     "watcher_node",
 ]

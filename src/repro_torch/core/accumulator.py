@@ -19,6 +19,11 @@ traffic is ``2 · pair_capacity(V, k)`` elements per contribution plus the
 ``V``-element republish — the same figures as the JAX package, to the
 element.  ``auto`` only selects pairs when they are lossless AND cheaper, so
 it never changes results.
+
+Dense contract: the fixed dense modes keep an O(V) running sum, as the JAX
+package does; a buffered round (AUTO) that takes the dense branch is folded
+in arrival order by the ``accumulate_blocked`` kernel, bit-exact with that
+fold for float32.
 """
 
 from __future__ import annotations
@@ -42,6 +47,22 @@ from repro_torch.core.sparse import (
     sparse_beneficial_batch,
 )
 from repro_torch.device import to_tensor
+from repro_torch.kernels.accumulate.ops import accumulate as accumulate_rows
+
+
+def _dense_sum(flats: list) -> torch.Tensor:
+    """A buffered round's dense sum: the left fold ``flats[0] + flats[1] +
+    …`` in arrival order.  Float32 rounds take the ``accumulate_blocked``
+    kernel (its plain version on the CPU), which folds the rows in that
+    order in fp32 and so gives the same bits.  Rounds of any other dtype
+    keep the JAX package's fold: a bf16 fold rounds after each add, where
+    the kernel sums in fp32 and rounds once."""
+    if all(f.dtype == torch.float32 for f in flats):
+        return accumulate_rows(flats)
+    total = flats[0]
+    for f in flats[1:]:
+        total = total + f
+    return total
 
 
 class AccumMode(str, Enum):
@@ -180,10 +201,7 @@ class DAddAccumulator:
                 self.bytes_transferred += (
                     sum(2 * c for c in self.last_pair_counts) + vec_len)
             else:
-                total = flats[0]
-                for f in flats[1:]:
-                    total = total + f
-                total = total.reshape(shape)
+                total = _dense_sum(flats).reshape(shape)
                 self.last_pair_counts = []
                 self._account_dense(vec_len)
         self.last_mode = mode

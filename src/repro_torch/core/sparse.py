@@ -11,7 +11,8 @@ The integer layout (:func:`block_layout`, :func:`pair_capacity`,
 :func:`default_auto_k`) is copied verbatim: wire accounting is derived from
 it, and the two packages' ``wire_traffic()`` must agree to the element.
 
-Selection dispatches to the hand-written kernels of
+The receive side, :func:`densify`, runs the ``sparse_scatter_add`` kernel
+for float32 pairs.  Selection dispatches to the hand-written kernels of
 :mod:`repro_torch.kernels` (``impl="kernel"``: the CUDA kernel on the card,
 its plain version on the CPU); ``impl="torch"`` keeps a reference written
 with ``torch.sort``, independent of the kernels' key packing.  All routes
@@ -24,6 +25,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.kernels.sparse_update.ops import scatter_add
+from repro_torch.kernels.sparse_update.ref import pair_rows
 
 DEFAULT_BLOCK = 1024
 
@@ -128,6 +132,17 @@ def _rank_desc(mag: torch.Tensor) -> torch.Tensor:
     return torch.sort(mag, dim=-1, descending=True, stable=True).indices
 
 
+def topk_sparsify(x: torch.Tensor, k: int):
+    """(indices, values) of the k largest-magnitude entries of a 1-D x —
+    the unblocked (global sort) form, kept for small vectors and tests.
+    Indices are int32 and ties go to the lower index, as ``jax.lax.top_k``
+    gives them."""
+    if not 0 <= k <= x.shape[0]:
+        raise ValueError(f"k must lie in [0, {x.shape[0]}], got {k}")
+    idx = _rank_desc(x.abs())[:k]
+    return idx.to(torch.int32), x[idx]
+
+
 def _blocked_topk_torch(x: torch.Tensor, nblocks: int, block_eff: int,
                         per_block: int):
     """torch reference path: same selection schedule as the kernels."""
@@ -172,15 +187,21 @@ def blocked_topk_sparsify(x: torch.Tensor, k: int, block: int = DEFAULT_BLOCK, *
 def densify(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
     """Scatter-add (index, value) pairs into a dense length-n vector.
 
-    ``idx``/``vals`` are 1-D, or (T, P) — one row per thread.  The rows are
-    added in row order, one ``index_add_`` each: within one thread's pairs
-    the indices are unique apart from ``(0, 0.0)`` padding (adding +0.0 to a
-    sum that started at +0.0 changes nothing), so the card's atomic adds
+    ``idx``/``vals`` are 1-D, or (T, P) — one row per thread, added in row
+    order.  Float32 pairs go through
+    :func:`repro_torch.kernels.sparse_update.ops.scatter_add`: the CUDA
+    kernel on the card, one launch per row with atomic adds, its plain
+    version (one ``index_add_`` per row) on the CPU.  Within one thread's
+    pairs the indices are unique apart from ``(0, 0.0)`` padding (adding
+    +0.0 to a sum that started at +0.0 changes nothing), so the atomics
     reach the same bits as the JAX package's sequential scatter, thread 0's
-    pairs first."""
+    pairs first.  Pairs of any other dtype add in their own type, as the
+    JAX package's scatter does (a bf16 scatter rounds after each add, where
+    the kernel sums in fp32)."""
+    if vals.dtype == torch.float32:
+        return scatter_add(idx, vals, out_len=n)
     out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    rows = (idx.reshape(1, -1), vals.reshape(1, -1)) if idx.ndim == 1 else (idx, vals)
-    for i, v in zip(*rows):
+    for i, v in zip(*pair_rows(idx, vals)):
         out.index_add_(0, i.long(), v)
     return out
 

@@ -30,6 +30,15 @@ def kmeans_dataset(n_rows: int, n_features: int, k: int, seed: int = 0, spread: 
     return x.astype(np.float32), centers, assign
 
 
+def nmf_dataset(n_rows: int, n_cols: int, rank: int, seed: int = 0, noise: float = 0.01):
+    """Non-negative low-rank matrix R ≈ P·Q plus noise."""
+    rng = np.random.default_rng(seed)
+    p = np.abs(rng.normal(size=(n_rows, rank))).astype(np.float32)
+    q = np.abs(rng.normal(size=(rank, n_cols))).astype(np.float32)
+    r = p @ q + noise * np.abs(rng.normal(size=(n_rows, n_cols))).astype(np.float32)
+    return r.astype(np.float32), p, q
+
+
 def powerlaw_graph(n_vertices: int, avg_degree: int = 8, seed: int = 0):
     """Preferential-attachment-flavoured directed edge list (src, dst)."""
     rng = np.random.default_rng(seed)

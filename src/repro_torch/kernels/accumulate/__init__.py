@@ -1,1 +1,2 @@
-"""The fused sparsify→scatter-add reduce (CUDA)."""
+"""The accumulator's reduces (CUDA): the dense round's row fold
+(``accumulate_blocked``) and the fused sparsify→scatter-add."""

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fused_scatter", "topk_compress", "kmeans_assign", "flash_attention",
-           "ssd_scan")
+           "ssd_scan", "accumulate", "scatter_add")
 HEADERS = ("common.cuh", "bitonic.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,7 +54,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """A plain count of one kernel's launches (thread-safe increment)."""
+    """A plain count of one kernel's launches (thread-safe increment; a
+    wrapper that launches its kernel once per row adds the rows)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -62,9 +63,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         _COUNTERS[name] = self
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:

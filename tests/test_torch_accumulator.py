@@ -129,6 +129,61 @@ def test_auto_branch_decisions_equal():
     assert acc.last_mode == TMode.SPARSE
 
 
+@pytest.mark.parametrize("V,N", [(1024, 4), (4097, 3), (1, 2), (3000, 7)])
+def test_auto_dense_round_bitexact(V, N):
+    """An AUTO round on dense contributions takes the dense branch, folded by
+    the accumulate_blocked route: the same bits, wire count and last_mode as
+    repro's fold, in the same arrival order."""
+    oj, ot, acc = both("auto", _dense_vecs(V, N, seed=V))
+    assert acc.last_mode == TMode.REDUCE_SCATTER
+    assert np.array_equal(oj, ot)
+    assert acc.bytes_transferred == (N + 1) * V
+
+
+def test_dense_branch_routes_by_dtype(monkeypatch):
+    """A buffered dense round of float32 contributions goes through
+    ops.accumulate; any other dtype keeps repro's fold, which rounds after
+    each add (bf16: 1 + 2^-9 + 2^-9 + 2^-9 stays 1, where an fp32 sum
+    rounded once would give 1 + 2^-7).  The fixed dense modes keep their
+    running sum and never call it."""
+    import repro_torch.core.accumulator as tacc
+    calls = []
+    real = tacc.accumulate_rows
+    monkeypatch.setattr(tacc, "accumulate_rows",
+                        lambda rows: calls.append(rows[0].dtype) or real(rows))
+
+    def run(mode, dtype, vals):
+        store = TStore(device="cpu")
+        store.new_array("out", (3,))
+        acc = TAcc(store, "out", len(vals), 2, mode, k=1)
+        ts = []
+        for i, v in enumerate(vals):
+            ts.append(threading.Thread(target=acc.accumulate,
+                                       args=(torch.full((3,), v, dtype=dtype),)))
+            ts[-1].start()
+            deadline = time.time() + 10
+            while acc._count < i + 1 and i + 1 < len(vals) and time.time() < deadline:
+                time.sleep(0.001)
+        for t in ts:
+            t.join(10)
+            assert not t.is_alive()
+        return store.get("out"), acc
+
+    vals = [1.0, 2.0 ** -9, 2.0 ** -9, 2.0 ** -9]
+    out, acc = run(TMode.AUTO, torch.bfloat16, vals)
+    assert acc.last_mode == TMode.REDUCE_SCATTER and calls == []
+    assert out.dtype == torch.bfloat16 and out.tolist() == [1.0] * 3
+    ref = jnp.asarray([1.0] * 3, jnp.bfloat16)
+    for v in vals[1:]:
+        ref = ref + jnp.asarray([v] * 3, jnp.bfloat16)
+    assert np.array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+    out, acc = run(TMode.AUTO, torch.float32, vals)
+    assert calls == [torch.float32] and acc.last_mode == TMode.REDUCE_SCATTER
+    assert out.tolist() == [1.0 + 3 * 2.0 ** -9] * 3
+    run(TMode.REDUCE_SCATTER, torch.float32, vals)
+    assert calls == [torch.float32]
+
+
 def test_scalar_and_matrix_contributions():
     oj, ot, acc = both("auto", [np.float32(2.0), np.float32(3.0)])
     assert float(ot) == 5.0 and acc.last_mode == TMode.REDUCE_SCATTER

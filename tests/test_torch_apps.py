@@ -12,15 +12,18 @@ torch = pytest.importorskip("torch")
 
 from repro.analytics import kmeans as jkmeans  # noqa: E402
 from repro.analytics import logreg as jlogreg  # noqa: E402
+from repro.analytics import nmf as jnmf  # noqa: E402
 from repro.analytics import pagerank as jpagerank  # noqa: E402
 from repro.core.session import HostBackend as JHost  # noqa: E402
 from repro.core.session import Session as JSession  # noqa: E402
 from repro.data import kmeans_dataset as j_kmeans_dataset  # noqa: E402
 from repro.data import logreg_dataset as j_logreg_dataset  # noqa: E402
+from repro.data import nmf_dataset as j_nmf_dataset  # noqa: E402
 from repro.data import powerlaw_graph as j_powerlaw_graph  # noqa: E402
-from repro_torch.analytics import kmeans, logreg, pagerank  # noqa: E402
+from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
 from repro_torch.core import HostBackend, Session  # noqa: E402
-from repro_torch.data import kmeans_dataset, logreg_dataset, powerlaw_graph  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    kmeans_dataset, logreg_dataset, nmf_dataset, powerlaw_graph)
 from repro_torch.kernels import build  # noqa: E402
 
 
@@ -42,7 +45,8 @@ def test_datasets_identical_from_one_seed():
     for a, b in ((powerlaw_graph(300, 5, seed=3), j_powerlaw_graph(300, 5, seed=3)),
                  (kmeans_dataset(100, 8, 4, seed=1)[0], j_kmeans_dataset(100, 8, 4, seed=1)[0]),
                  (logreg_dataset(100, 16, seed=2)[0], j_logreg_dataset(100, 16, seed=2)[0]),
-                 (logreg_dataset(100, 16, seed=2)[1], j_logreg_dataset(100, 16, seed=2)[1])):
+                 (logreg_dataset(100, 16, seed=2)[1], j_logreg_dataset(100, 16, seed=2)[1]),
+                 (nmf_dataset(60, 20, 3, seed=4)[0], j_nmf_dataset(60, 20, 3, seed=4)[0])):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
@@ -119,3 +123,38 @@ def test_logreg_ssp_async_converges():
                                 device="cpu")
     assert logreg.loss(ssp, x, y) < logreg.loss(ref, x, y) * 1.5 + 0.05
     assert clock.min_clock() == 12
+
+
+# nmf_dataset(seed) and fit(seed) draw P then Q from one stream: the fits
+# start from another seed than the data's, or they would start at the answer
+NMF_DATA_SEED, NMF_INIT_SEED = 2, 3
+
+
+def test_nmf_reference_matches_repro():
+    r, _, _ = nmf_dataset(120, 32, 4, seed=NMF_DATA_SEED)
+    p_t, q_t = nmf.fit_reference(r, 4, iters=10, seed=NMF_INIT_SEED, device="cpu")
+    p_j, q_j = jnmf.fit_reference(r, 4, iters=10, seed=NMF_INIT_SEED)
+    np.testing.assert_allclose(p_t, p_j, rtol=1e-5)
+    np.testing.assert_allclose(q_t, q_j, rtol=1e-5)
+    np.testing.assert_allclose(nmf.frob_loss(r, p_t, q_t, device="cpu"),
+                               jnmf.frob_loss(r, p_j, q_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["auto", "reduce_scatter"])
+def test_nmf_matches_repro(mode):
+    """2 x 2 threads at test_analytics.py's size: the loss within its rtol
+    1e-2 of both references, Q to the app tolerance, equal wire traffic and
+    branch.  Under auto every round is dense, through ops.accumulate."""
+    r, _, _ = nmf_dataset(120, 32, 4, seed=NMF_DATA_SEED)
+    p_t, q_t, s_t = nmf.fit(r, 4, iters=10, seed=NMF_INIT_SEED, mode=mode, device="cpu")
+    p_j, q_j, s_j = jnmf.fit(r, 4, iters=10, seed=NMF_INIT_SEED, mode=mode, backend="host")
+    loss = nmf.frob_loss(r, p_t, q_t, device="cpu")
+    np.testing.assert_allclose(loss, jnmf.frob_loss(r, p_j, q_j), rtol=1e-2)
+    p_r, q_r = nmf.fit_reference(r, 4, iters=10, seed=NMF_INIT_SEED, device="cpu")
+    assert loss < nmf.frob_loss(r, *nmf._init(120, 32, 4, NMF_INIT_SEED), device="cpu")
+    np.testing.assert_allclose(loss, nmf.frob_loss(r, p_r, q_r, device="cpu"), rtol=1e-2)
+    np.testing.assert_allclose(q_t, q_j, **APP_TOL)
+    assert p_t.shape == (120, 4) and q_t.shape == (4, 32)
+    assert s_t.wire_traffic() == s_j.wire_traffic() == (4 + 1) * (4 * 32 + 16) * 10
+    assert s_t.accumulator("q_partials").last_mode.value == "reduce_scatter"
+    assert s_j.accumulator("q_partials").last_mode.value == "reduce_scatter"

@@ -5,6 +5,8 @@ on the card unless the caller asks for the CPU."""
 import ast
 import pathlib
 
+import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -48,10 +50,13 @@ def test_port_files_exist():
           "kernels/flash_attention/ref.py", "kernels/flash_attention/ops.py",
           "kernels/flash_attention/kernel.py", "kernels/ssd_scan/ref.py",
           "kernels/ssd_scan/ops.py", "kernels/ssd_scan/kernel.py", "launch/steps.py",
-          "launch/serve.py"]
+          "launch/serve.py", "kernels/accumulate/ref.py", "kernels/accumulate/kernel.py",
+          "kernels/accumulate/ops.py", "kernels/sparse_update/ref.py",
+          "kernels/sparse_update/kernel.py", "kernels/sparse_update/ops.py",
+          "analytics/nmf.py"]
     missing = [f for f in lm if f"src/repro_torch/{f}" not in names]
     assert not missing, missing
-    for source in ("flash_attention.cu", "ssd_scan.cu"):
+    for source in ("flash_attention.cu", "ssd_scan.cu", "accumulate.cu", "scatter_add.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / source).is_file(), source
     assert len(PORT_FILES) > 20
 
@@ -67,13 +72,14 @@ def test_no_jax_or_repro_import(path):
 def test_default_device_raises_without_a_gpu(monkeypatch):
     """device=None means the card: on a host with no visible GPU the entry
     points raise instead of falling back to the CPU."""
-    from repro_torch.analytics import kmeans
+    from repro_torch.analytics import kmeans, nmf
     from repro_torch.core import GlobalStore, Session
     from repro_torch.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (resolve_device, Session, GlobalStore,
-                 lambda: kmeans.fit_reference([[0.0, 1.0], [1.0, 0.0]], 1, 1)):
+                 lambda: kmeans.fit_reference([[0.0, 1.0], [1.0, 0.0]], 1, 1),
+                 lambda: nmf.fit_reference(np.ones((2, 2), np.float32), 1, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

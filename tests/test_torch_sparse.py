@@ -180,6 +180,48 @@ def test_pairs_format_and_densify():
     assert np.array_equal(T.densify(idx, vals, 300).numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("v,k,rows", [(300, 8, 4), (5000, 1200, 3), (1000, 50, 1)])
+def test_densify_pair_rows_bitexact(v, k, rows):
+    """(T, P) pairs of real compressions (overlapping across rows, unique
+    within a row apart from (0, 0.0) padding), and the flat 1-D form: the
+    same bits as repro's densify, which scatters thread 0's pairs first."""
+    rng = np.random.default_rng(v)
+    pairs = [T.blocked_topk_sparsify(torch.from_numpy(_vec(rng, v, 0.6)), k)
+             for _ in range(rows)]
+    idx = torch.stack([p.idx for p in pairs])
+    vals = torch.stack([p.vals for p in pairs])
+    ref = np.asarray(J.densify(jnp.asarray(idx.numpy()), jnp.asarray(vals.numpy()), v))
+    assert np.array_equal(T.densify(idx, vals, v).numpy(), ref)
+    assert np.array_equal(T.densify(idx.reshape(-1), vals.reshape(-1), v).numpy(), ref)
+
+
+def test_densify_bf16_adds_in_bf16_as_repro():
+    """Non-float32 pairs keep repro's scatter in their own type."""
+    idx = np.array([[1, 1, 1, 1, 2]], np.int32)
+    vals = np.array([[1.0, 2.0 ** -9, 2.0 ** -9, 2.0 ** -9, 3.0]], np.float32)
+    got = T.densify(torch.from_numpy(idx), torch.from_numpy(vals).to(torch.bfloat16), 4)
+    ref = J.densify(jnp.asarray(idx), jnp.asarray(vals, jnp.bfloat16), 4)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    assert got.tolist() == [0.0, 1.0, 3.0, 0.0]
+
+
+@pytest.mark.parametrize("v,k", [(1, 1), (100, 10), (1000, 200), (64, 64)])
+def test_topk_sparsify_bitexact(v, k):
+    """The unblocked form: indices and values equal to repro's, ties at zero
+    and at equal magnitudes broken toward the lower index."""
+    x = _vec(np.random.default_rng(k), v)
+    x[: v // 10] = np.abs(x[: v // 10])
+    x[v // 10: v // 5] = -np.abs(x[: v // 10][: v // 5 - v // 10])   # ± ties
+    ti, tv = T.topk_sparsify(torch.from_numpy(x), k)
+    ji, jv = J.topk_sparsify(jnp.asarray(x), k)
+    assert ti.dtype == torch.int32
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    assert np.array_equal(tv.numpy(), np.asarray(jv))
+    with pytest.raises(ValueError, match="k must lie"):
+        T.topk_sparsify(torch.from_numpy(x), v + 1)
+
+
 def test_impl_and_method_validation():
     x = torch.zeros(16)
     with pytest.raises(ValueError, match="kernel|torch"):
