@@ -23,7 +23,12 @@ Phases, in order; any failure raises and the run exits non-zero:
              replay, which leaves the host's part of a call out.
              flash_attention (fp32 and bf16) and ssd_scan are held to
              test_kernels.py's tolerances at its shapes and at the shapes
-             the LM main path gives them.
+             the LM main path gives them; flash_attention also at the edges
+             of its tiling (head dims 20, 80 and 192/128, T > S, a
+             decode-shaped T = 1, the qwen3 shape at batch 1); its fp32
+             body's -Xptxas -v lines (registers, spills) are printed, and
+             its bound is the 3xTF32 tensor-core one (the fp32 pipes'
+             printed beside it).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -55,6 +60,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -78,7 +84,7 @@ from repro_torch.kernels.accumulate.fused_scatter import (  # noqa: E402
     fused_topk_scatter, fused_topk_scatter_plain)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_bhsd, gqa_plain)
+    flash_attention_bhsd, gqa_plain, smem_bytes)
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
@@ -94,6 +100,7 @@ from repro_torch.models import build_model  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
 APP_TOL = dict(rtol=1e-5, atol=1e-6)
 N_NODES, THREADS_PER_NODE = 2, 2
 N_THREADS = N_NODES * THREADS_PER_NODE
@@ -193,9 +200,9 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float = 0.0) -> tuple:
+def bound_ms(nbytes: float, flops: float = 0.0, flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -439,10 +446,26 @@ def cuda_normal(rng, shape, scale=1.0, dtype=torch.float32):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).cuda().to(dtype)
 
 
+def ptxas_lines(log: str, marker: str) -> list:
+    """The -Xptxas -v lines (registers, spills, stack) of each kernel whose
+    mangled name contains ``marker``."""
+    found, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1) if marker in entry.group(1) else None
+        elif name and ("registers" in line or "spill" in line):
+            found.append(f"{name}: {line.strip()}")
+    return found
+
+
 def check_flash(rng) -> dict:
     """flash_attention against its plain version: test_kernels.py's four
-    sweep shapes in fp32 and bf16, a GQA shape with q_offset and T != S, and
-    the qwen3-1.7b prefill shape (B 4, T 2048, KH 8, G 2, d 128), timed
+    sweep shapes, the edges of the kernel's tiling (head dims 20, 80 and
+    192/128; T > S with S no multiple of the KV tile) and, on the GQA layout,
+    q_offset with T != S, a decode-shaped call (T = 1, q_offset = S - 1) and
+    the qwen3-1.7b prefill shape at batch 1, each in fp32 and bf16; then the
+    qwen3-1.7b prefill shape (B 4, T 2048, KH 8, G 2, d 128) in fp32, timed
     there beside SDPA on the same inputs (K/V expanded to the 16 heads)."""
     def held(out, ref, dtype, what):
         tol = FLASH_TOL[dtype]
@@ -451,15 +474,21 @@ def check_flash(rng) -> dict:
 
     for dtype in FLASH_TOL:
         for bh, t, s, d, dv, causal in [(2, 128, 128, 64, 64, True), (1, 96, 160, 32, 16, False),
-                                        (3, 64, 64, 128, 128, True), (1, 17, 33, 16, 16, True)]:
+                                        (3, 64, 64, 128, 128, True), (1, 17, 33, 16, 16, True),
+                                        (2, 50, 70, 20, 20, True), (2, 130, 130, 80, 80, True),
+                                        (2, 100, 150, 192, 128, False),
+                                        (1, 200, 77, 64, 64, True), (1, 200, 77, 128, 128, False)]:
             q, k, v = (cuda_normal(rng, sh, dtype=dtype) for sh in ((bh, t, d), (bh, s, d),
                                                                     (bh, s, dv)))
             held(flash_attention_bhsd(q, k, v, causal=causal),
                  attention_bhsd_ref(q, k, v, causal=causal), dtype, (bh, t, s, d, dv, dtype))
-        q = cuda_normal(rng, (2, 130, 4, 2, 128), dtype=dtype)
-        k, v = (cuda_normal(rng, (2, 200, 4, 128), dtype=dtype) for _ in range(2))
-        held(fa_ops.flash_attention(q, k, v, causal=True, q_offset=70),
-             gqa_plain(q, k, v, causal=True, q_offset=70), dtype, f"GQA q_offset=70 {dtype}")
+        for b, t, s, kh, g, q_offset in [(2, 130, 200, 4, 2, 70), (2, 1, 300, 8, 2, 299),
+                                         (1, LM_PREFILL, LM_PREFILL, 8, 2, 0)]:
+            q = cuda_normal(rng, (b, t, kh, g, 128), dtype=dtype)
+            k, v = (cuda_normal(rng, (b, s, kh, 128), dtype=dtype) for _ in range(2))
+            held(fa_ops.flash_attention(q, k, v, causal=True, q_offset=q_offset),
+                 gqa_plain(q, k, v, causal=True, q_offset=q_offset), dtype,
+                 f"GQA {(b, t, s, kh, g)} q_offset={q_offset} {dtype}")
 
     b, t, kh, g, d = LM_BATCH, LM_PREFILL, 8, 2, 128
     q = cuda_normal(rng, (b, t, kh, g, d))
@@ -468,17 +497,27 @@ def check_flash(rng) -> dict:
     ref = gqa_plain(q, k, v, causal=True, q_offset=0)
     held(out, ref, torch.float32, "qwen3-1.7b prefill shape")
     visible = t * (t + 1) // 2                       # causal (query, key) pairs per head
-    tb, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()),
-                      4.0 * b * kh * g * visible * d)
+    nbytes, flops = 4 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * b * kh * g * visible * d
+    # the fp32 body does each product as three TF32 products on the tensor
+    # cores (3xTF32): its bound; the fp32 pipes' is printed beside it
+    tb, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    fp32_tb, _ = bound_ms(nbytes, flops)
     qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
     ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    log(f"flash_attention fp32 bounds at the qwen3 prefill shape: {tb:.4f} ms ({by}; "
+        f"3xTF32: 3 x the flops at 495 TFLOP/s on the tensor cores, the bound recorded), "
+        f"{fp32_tb:.4f} ms (the flops on the fp32 pipes at 67 TFLOP/s); shared memory per "
+        f"CTA {smem_bytes(d, d, torch.float32)} bytes")
     return dict(
         shape=f"q ({b}, {t}, {kh}, {g}, {d}) f32, k/v ({b}, {t}, {kh}, {d}), causal",
         max_abs_err=float((out - ref).abs().max()),
         ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
+        device_ms=graph_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
         plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=True, q_offset=0), 5),
         bound_ms=tb, bound_by=by,
         library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 20),
+        library_device_ms=graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), 20))
 
 
@@ -886,8 +925,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build.build_all()
+    logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} sources")
+    for line in ptxas_lines(logs.get("flash_attention", ""), "flash_tf32_kernel"):
+        log("flash_attention_f32 ptxas:", line)
 
     rng = np.random.default_rng(SEED)
     measured = check_kernels(rng)

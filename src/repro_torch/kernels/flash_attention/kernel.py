@@ -21,7 +21,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref
 
 MAX_HEAD_DIM = 256                 # dk and dv: the kernel's widest instantiation
-MAX_SHARED_BYTES = 227 * 1024      # a CTA's shared memory on Hopper
 DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 launches = build.LaunchCounter("flash_attention")
@@ -29,14 +28,16 @@ launches = build.LaunchCounter("flash_attention")
 _ENTRY = (build.PTR, build.PTR, build.PTR, build.PTR, build.INT, build.INT, build.INT,
           build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
           build.FLOAT, build.PTR)
-_SIGNATURES = {"flash_attention_f32": _ENTRY, "flash_attention_bf16": _ENTRY}
+_SIGNATURES = {"flash_attention_f32": _ENTRY, "flash_attention_bf16": _ENTRY,
+               "flash_attention_smem_bytes": (build.INT, build.INT, build.INT)}
 
 
-def smem_bytes(dk: int, dv: int) -> int:
-    """Shared memory of one CTA (csrc/flash_attention.cu: the Q, K, V and
-    probability tiles of 64 rows, each row padded for aligned float4 reads)."""
-    qk_stride = dk + (4 if (dk // 4) % 2 == 0 else 8)
-    return 4 * (128 * qk_stride + 64 * (dv + 4) + 64 * 68)
+def smem_bytes(dk: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one CTA of the body that takes (dk, dv) in ``dtype``
+    (float32: the tensor-core body, bfloat16: the SIMT body), as the kernel's
+    source computes it (``flash_attention_smem_bytes``); builds the library."""
+    lib = build.library("flash_attention", _SIGNATURES)
+    return lib.flash_attention_smem_bytes(dk, dv, int(dtype == torch.float32))
 
 
 def gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -73,8 +74,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash_attention kernel takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if max(dk, dv) > MAX_HEAD_DIM or dk % 4 or dv % 4 \
-            or smem_bytes(dk, dv) > MAX_SHARED_BYTES:
+    if max(dk, dv) > MAX_HEAD_DIM or dk % 4 or dv % 4:
         raise ValueError(f"the flash_attention kernel takes head dims that are multiples "
                          f"of 4, up to {MAX_HEAD_DIM}; got dk={dk}, dv={dv}")
     if q_offset < 0:
@@ -85,7 +85,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, T, KH, G, dv), dtype=q.dtype, device=q.device)
     if B * T * KH * G == 0:
         return out
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the float32 body stages rows with 16-byte cp.async: a view that starts
+    # off a 16-byte boundary is copied into a fresh (aligned) tensor
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     name = DTYPES[q.dtype]
     lib = build.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_bhsd, gqa_plain)
+    MAX_HEAD_DIM, flash_attention_bhsd, gqa_plain, smem_bytes)
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bh  # noqa: E402
@@ -222,11 +222,19 @@ def test_library_names_cover_the_lm_kernels():
 # -- on the card: each CUDA kernel against its plain version -----------------------
 
 
+# the edges of the kernels' tiling: d a multiple of 4 but not of 8 (20), the
+# hubert / zamba2 head dim (80), MLA's dk != dv (192 / 128), T > S with S
+# not a multiple of the KV tile (causal and not)
+FLASH_EDGE_SHAPES = [(2, 50, 70, 20, 20, True, 0, 0), (2, 130, 130, 80, 80, True, 0, 0),
+                     (2, 100, 150, 192, 128, False, 0, 0), (1, 200, 77, 64, 64, True, 0, 0),
+                     (1, 200, 77, 128, 128, False, 0, 0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("BH,T,S,d,dv,causal,bq,bk",
                          FLASH_SHAPES + [(2, 100, 300, 256, 200, False, 0, 0),
-                                         (1, 70, 70, 96, 96, True, 0, 0)])
+                                         (1, 70, 70, 96, 96, True, 0, 0)] + FLASH_EDGE_SHAPES)
 def test_flash_kernel_vs_plain(cuda, dtype, BH, T, S, d, dv, causal, bq, bk):
     _, tensors = _flash_inputs(BH, T, S, d, dv, dtype)
     q, k, v = (t.to(cuda) for t in tensors)
@@ -244,17 +252,54 @@ def test_flash_kernel_vs_plain(cuda, dtype, BH, T, S, d, dv, causal, bq, bk):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T,S,KH,G,dh,q_offset", [(2, 64, 64, 2, 3, 32, 0),
                                                     (1, 8, 40, 2, 2, 16, 32),
-                                                    (2, 130, 200, 4, 2, 128, 70)])
+                                                    (2, 130, 200, 4, 2, 128, 70),
+                                                    (2, 1, 300, 8, 2, 128, 299),
+                                                    (1, 2048, 2048, 8, 2, 128, 0)])
 def test_flash_kernel_gqa_vs_plain(cuda, dtype, B, T, S, KH, G, dh, q_offset):
+    """The GQA layout, with a decode-shaped call (T = 1, q_offset = S - 1)
+    and the qwen3-1.7b prefill shape at B = 1."""
     rng = np.random.default_rng(2)
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
                for s in ((B, T, KH, G, dh), (B, S, KH, dh), (B, S, KH, dh)))
+    before = build.launch_counts()["flash_attention"]
     out = fa_ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    assert build.launch_counts()["flash_attention"] == before + 1
     ref = gqa_plain(q, k, v, causal=True, q_offset=q_offset)
     torch.cuda.synchronize()
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_views_off_16_bytes(cuda):
+    """The fp32 body stages rows with 16-byte cp.async: q, k, v that start
+    one float past an aligned address are copied first, not misread."""
+    rng = np.random.default_rng(3)
+
+    def off(shape):
+        flat = rng.normal(size=int(np.prod(shape)) + 1).astype(np.float32)
+        return torch.from_numpy(flat).to(cuda)[1:].view(shape)
+
+    q, k, v = off((1, 40, 2, 2, 32)), off((1, 50, 2, 32)), off((1, 50, 2, 32))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and v.data_ptr() % 16
+    out = fa_ops.flash_attention(q, k, v, causal=True, q_offset=10)
+    ref = gqa_plain(q, k, v, causal=True, q_offset=10)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,at_128", [("float32", 215_040), ("bfloat16", 118_784)])
+def test_flash_smem_fits_every_head_dim_the_kernel_takes(cuda, dtype, at_128):
+    """Each body's shared memory per CTA, as csrc/flash_attention.cu computes
+    it (float32: the tensor-core body's Q tile and two K/V stages, bfloat16:
+    the SIMT body's tiles), fits Hopper's 227 KB for every dk, dv the wrapper
+    accepts, multiples of 4 up to 256; at qwen3's head dim 128 it is as the
+    kernel's note states."""
+    dt = getattr(torch, dtype)
+    dims = range(4, MAX_HEAD_DIM + 1, 4)
+    assert max(smem_bytes(dk, dv, dt) for dk in dims for dv in dims) <= 227 * 1024
+    assert smem_bytes(128, 128, dt) == at_128
 
 
 @pytest.mark.cuda
