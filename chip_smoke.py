@@ -28,7 +28,13 @@ Phases, in order; any failure raises and the run exits non-zero:
              decode-shaped T = 1, the qwen3 shape at batch 1); its fp32
              body's -Xptxas -v lines (registers, spills) are printed, and
              its bound is the 3xTF32 tensor-core one (the fp32 pipes'
-             printed beside it).
+             printed beside it).  The bf16 body is timed at the qwen3-1.7b
+             prefill shape beside SDPA in bf16 (a row of its own).  Then the
+             inputs repro's kernels take off the float32 main path
+             (A_INPUTS, C_INPUTS, D_INPUTS; bf16 at the main-path shapes;
+             ssd_scan at chunk 256), each held and timed beside its plain
+             version; and accumulate_blocked's host cost split into
+             the parts of its launch path (g_split, 1,000 calls each).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -36,7 +42,10 @@ Phases, in order; any failure raises and the run exits non-zero:
              kmeans on the Covertype shape with the kernel (plus four
              uncounted runs from the default init, whose spread is printed),
              logreg with sparse_k fused and unfused, nmf on Netflix's 17,770
-             movie columns (AUTO and reduce_scatter).  Launch counters are
+             movie columns (AUTO and reduce_scatter); one bf16 SPARSE round
+             through DAddAccumulator at pagerank's V, fused and unfused,
+             bit-exact with its plain path.  accumulate_blocked is timed per
+             call inside the pagerank AUTO run.  Launch counters are
              zeroed just before each run and read just after; every kernel
              must have been launched, the counts each run must give are
              asserted.  A small run of each app is also held against its
@@ -51,6 +60,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              mamba2-2.7b's gap is printed for its plain chunked forward too,
              on the same weights; (c) serve(smoke=False) with 4 x 32 prompt
              tokens and 32 generated.  Each model is freed before the next.
+             Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
+             kernel's bf16 body once per layer.
 6. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
@@ -101,6 +112,9 @@ from repro_torch.models import build_model  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+BF16 = torch.bfloat16
+DTYPE_NAMES = {torch.float32: "f32", BF16: "bf16"}
 APP_TOL = dict(rtol=1e-5, atol=1e-6)
 N_NODES, THREADS_PER_NODE = 2, 2
 N_THREADS = N_NODES * THREADS_PER_NODE
@@ -138,6 +152,8 @@ KERNELS = {
                       "src/repro/kernels/kmeans_assign/kernel.py:31"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:70"),
+    "flash_attention_bf16": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:70"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:62"),
     "accumulate_blocked": ("src/repro_torch/csrc/accumulate.cu",
@@ -153,6 +169,20 @@ LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, "flash_attention"),
 LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)                      # the repo's bf16 tolerance
+# inputs the JAX package's kernels take off the float32 main path
+# (tests/test_torch_inputs.py's cuda shapes): A (N, V, k, block) and
+# B/C (V, k, block) at blocks past 1,024 lanes, in shared memory (2,048,
+# 16,384) and in device scratch (65,536); D (N, D, K): K 1,024 at D 64 (centers
+# in tiles), K 9,000, D 60,000 (no center row fits shared memory; its points
+# integer-valued, so that sums of 60,000 products are exact in fp32 in any
+# order and kernel and plain agree exactly)
+A_INPUTS = [(4, 16384, 512, 1024), (3, 900, 900, 256), (4, 30_000, 3000, 2048),
+            (4, 40_000, 4000, 16_384), (2, 150_000, 9000, 65_536),
+            (3, 70_000, 70_000, 65_536)]
+C_INPUTS = [(4096, 256, 1024), (2048, 16, 512), (30_000, 40, 2048), (40_000, 300, 16_384),
+            (150_000, 24, 65_536), (200_000, 100, 65_536)]
+D_INPUTS = [(20_000, 64, 1024), (3000, 8, 9000), (300, 60_000, 3)]
 
 
 def log(*args) -> None:
@@ -338,7 +368,10 @@ def check_kernels(rng) -> dict:
 def check_receive(rng) -> dict:
     """accumulate_blocked and sparse_scatter_add against their plain versions
     at test_kernels.py's sweeps and at the shapes the main path gives them,
-    each timed there."""
+    each timed there (accumulate_blocked also through the accumulator's
+    entry, which skips the row checks, as ``entry_ms``)."""
+    from repro_torch.kernels.accumulate.kernel import accumulate_rows_unchecked
+
     results = {}
     # G: accumulate_blocked — the sweep in fp32 (bit-exact) and bf16, as the
     # (N, V) tensor and as N separate rows; 70 rows exceed the pointer list
@@ -361,13 +394,15 @@ def check_receive(rng) -> dict:
         rows = [cuda_normal(rng, (v,)) for _ in range(N_THREADS)]
         x = torch.stack(rows)
         got, ref = accumulate_blocked(rows), accumulate_plain(rows)
-        if not (torch.equal(got, ref) and torch.equal(accumulate_blocked(x), ref)):
+        if not (torch.equal(got, ref) and torch.equal(accumulate_blocked(x), ref)
+                and torch.equal(accumulate_rows_unchecked(rows), ref)):
             raise AssertionError(f"accumulate_blocked differs at the {app} shape")
         t, by = bound_ms((N_THREADS + 1) * v * 4)
         per_shape[app] = dict(
             shape=f"{N_THREADS} rows of ({v},) f32",
             max_abs_err=float((got - ref).abs().max()),
             ms=time_ms(lambda: accumulate_blocked(rows), 20),
+            entry_ms=time_ms(lambda: accumulate_rows_unchecked(rows), 20),
             plain_ms=time_ms(lambda: accumulate_plain(rows), 20),
             bound_ms=t, bound_by=by,
             library_ms=time_ms(lambda: torch.sum(x, dim=0), 20),
@@ -423,6 +458,300 @@ def check_receive(rng) -> dict:
     log("sparse_scatter_add per main-path shape:", json.dumps(per_shape))
     results["sparse_scatter_add"] = per_shape["pagerank"]
     return results
+
+
+def check_inputs(rng) -> dict:
+    """Inputs the JAX package's kernels take off the float32 main path,
+    each kernel held against its plain version on them:
+    A and B/C bit-exact at bf16 and at blocks of 2,048, 16,384 and 65,536
+    (A_INPUTS, C_INPUTS); D with the same assignments at bf16 (Covertype's
+    shape) and at K 1,024 / D 64, K 9,000 and D 60,000; F within 3e-2 at
+    bf16 (the mamba2-2.7b prefill shape) and within 3e-4 at chunk 256 (two
+    sub-chunks of 128); A and C also at bf16 at pagerank's V.  Each is timed
+    per call (CUDA events) beside its plain version and a bound; the float32
+    main-path rows of phase 3 are the yardstick.  Returns the timings."""
+    from repro_torch.kernels.ssd_scan.kernel import sub_chunk
+
+    taken = {}
+
+    def record(name, shape, fn, plain, nbytes, flops=0.0, reps=10, device=False):
+        t, by = bound_ms(nbytes, flops)
+        taken[name] = dict(shape=shape, ms=time_ms(fn, reps), plain_ms=time_ms(plain, 3),
+                           bound_ms=t, bound_by=by)
+        if device:
+            taken[name]["device_ms"] = graph_ms(fn, 20)
+
+    # A: fused_topk_scatter
+    for n, v, k, block in A_INPUTS:
+        _, be, pb = block_layout(v, k, block)
+        for dtype in (torch.float32, BF16):
+            x = rng_sparse(rng, (n, v), 0.3).to(dtype)
+            if not torch.equal(fused_topk_scatter(x, per_block=pb, block_eff=be),
+                               fused_topk_scatter_plain(x, pb, be)):
+                raise AssertionError(f"fused_topk_scatter differs at {(n, v, k, block, dtype)}")
+            if block > 1024:
+                record(f"A {DTYPE_NAMES[dtype]} block {be}", f"x ({n}, {v}), per_block {pb}",
+                       lambda: fused_topk_scatter(x, per_block=pb, block_eff=be),
+                       lambda: fused_topk_scatter_plain(x, pb, be),
+                       (n + 1) * v * x.element_size())
+    _, be, pb = block_layout(LJ_VERTICES, LJ_VERTICES // 4)
+    x = rng_sparse(rng, (N_THREADS, LJ_VERTICES), 0.3).to(BF16)
+    if not torch.equal(fused_topk_scatter(x, per_block=pb, block_eff=be),
+                       fused_topk_scatter_plain(x, pb, be)):
+        raise AssertionError("fused_topk_scatter differs at bf16 at pagerank's V")
+    record("A bf16 pagerank", f"x ({N_THREADS}, {LJ_VERTICES}) bf16, block {be}, "
+           f"per_block {pb}", lambda: fused_topk_scatter(x, per_block=pb, block_eff=be),
+           lambda: fused_topk_scatter_plain(x, pb, be), (N_THREADS + 1) * LJ_VERTICES * 2,
+           reps=20, device=True)
+
+    # B/C: topk_compress, both bodies
+    for v, k, bv in C_INPUTS:
+        for dtype in (torch.float32, BF16):
+            x = rng_sparse(rng, (v,), 0.5).to(dtype)
+            pi, pv = topk_compress_plain(x, k, min(bv, v))
+            for m in ("argmax", "bitonic"):
+                i, val = topk_compress(x, k_per_block=k, block_v=bv, method=m)
+                if not (torch.equal(i, pi) and torch.equal(val, pv)):
+                    raise AssertionError(f"topk_compress {m} differs at {(v, k, bv, dtype)}")
+                if bv > 1024:
+                    nb = -(-v // bv)
+                    record(f"{'B' if m == 'argmax' else 'C'} {DTYPE_NAMES[dtype]} block {bv}",
+                           f"x ({v},), k_per_block {k}",
+                           lambda m=m: topk_compress(x, k_per_block=k, block_v=bv, method=m),
+                           lambda: topk_compress_plain(x, k, bv),
+                           v * x.element_size() + nb * k * (4 + x.element_size()))
+    nb, be, pb = block_layout(LJ_VERTICES, LJ_VERTICES // 4)
+    x = rng_sparse(rng, (LJ_VERTICES,), 0.3).to(BF16)
+    pi, pv = topk_compress_plain(x, pb, be)
+    i, val = topk_compress(x, k_per_block=pb, block_v=be, method="bitonic")
+    if not (torch.equal(i, pi) and torch.equal(val, pv)):
+        raise AssertionError("topk_compress bitonic differs at bf16 at pagerank's V")
+    record("C bf16 pagerank", f"x ({LJ_VERTICES},) bf16, block {be}, k_per_block {pb}",
+           lambda: topk_compress(x, k_per_block=pb, block_v=be, method="bitonic"),
+           lambda: topk_compress_plain(x, pb, be), LJ_VERTICES * 2 + nb * pb * 6,
+           reps=20, device=True)
+
+    # D: kmeans_assign at bf16 (one thread's share of Covertype) and past
+    # one CTA's shared memory
+    data, _, _ = kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)
+    n, k, d = COV_ROWS // N_THREADS, COV_K, COV_FEATURES
+    pts = torch.from_numpy(data[:n]).cuda().to(BF16)
+    ctr = pts[torch.from_numpy(np.random.default_rng(SEED).choice(n, k, replace=False)).cuda()]
+    check_assign(pts.float(), ctr.float(), *kmeans_assign(pts, ctr), *kmeans_assign_plain(pts, ctr))
+    record("D bf16 covertype", f"points ({n}, {d}) bf16, centers ({k}, {d})",
+           lambda: kmeans_assign(pts, ctr), lambda: kmeans_assign_plain(pts, ctr),
+           (n * d + k * d) * 2 + 8 * n, 2.0 * n * k * d, reps=20, device=True)
+    for n, d, k in D_INPUTS:
+        for dtype in (torch.float32, BF16):
+            if d > 10_000:
+                pts = torch.from_numpy(rng.integers(-1, 2, size=(n, d)).astype(
+                    np.float32)).cuda().to(dtype)
+            else:
+                pts = cuda_normal(rng, (n, d), dtype=dtype)
+            ctr = pts[torch.from_numpy(rng.choice(n, k, replace=n < k)).cuda()].clone()
+            got, want = kmeans_assign(pts, ctr), kmeans_assign_plain(pts, ctr)
+            if d > 10_000 and not all(map(torch.equal, got, want)):
+                raise AssertionError(f"kmeans_assign differs at D {d} ({dtype})")
+            check_assign(pts.float(), ctr.float(), *got, *want)
+            record(f"D {DTYPE_NAMES[dtype]} K {k} D {d}", f"points ({n}, {d}), centers ({k}, {d})",
+                   lambda: kmeans_assign(pts, ctr), lambda: kmeans_assign_plain(pts, ctr),
+                   (n * d + k * d) * pts.element_size() + 8 * n, 2.0 * n * k * d)
+
+    # F: ssd_scan at bf16 and at chunk 256, at the mamba2-2.7b prefill shape
+    b, t, h, p, g, n = LM_BATCH, LM_PREFILL, 80, 64, 1, 128
+    xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
+    for dtype, q in ((BF16, 128), (torch.float32, 256), (BF16, 256)):
+        xq, bq, cq = (z.to(dtype) for z in (xbar, bm, cm))
+        y = ssd_scan(xq, a, bq, cq, chunk=q)
+        ref = ssd_scan_plain(xq, a, bq, cq, q)[0]
+        torch.testing.assert_close(y.float(), ref.float(),
+                                   **(SSD_TOL if dtype == torch.float32 else BF16_TOL))
+        pairs = q * (q + 1) // 2
+        flops = (2.0 * pairs * (n + p) + 4.0 * q * n * p) * (t // q) * b * h
+        record(f"F {DTYPE_NAMES[dtype]} chunk {q} (walked as {sub_chunk(q, p, n)})",
+               f"xbar ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {g}, {n})",
+               lambda: ssd_scan(xq, a, bq, cq, chunk=q),
+               lambda: ssd_scan_plain(xq, a, bq, cq, q),
+               xq.element_size() * (2 * xq.numel() + bq.numel() + cq.numel()) + 4 * a.numel(),
+               flops, reps=5)
+    log("newly taken inputs, ms per call:", json.dumps(taken))
+    return taken
+
+
+def check_flash_bf16(rng) -> dict:
+    """flash_attention's bf16 body at the qwen3-1.7b prefill shape (q (4,
+    2048, 8, 2, 128), causal) against its plain version (limit 3e-2), timed
+    beside SDPA in bf16 on the same inputs (K/V expanded to the 16 heads)."""
+    b, t, kh, g, d = LM_BATCH, LM_PREFILL, 8, 2, 128
+    q = cuda_normal(rng, (b, t, kh, g, d), dtype=BF16)
+    k, v = (cuda_normal(rng, (b, t, kh, d), dtype=BF16) for _ in range(2))
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    ref = gqa_plain(q, k, v, causal=True, q_offset=0)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    visible = t * (t + 1) // 2
+    nbytes, flops = 2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * b * kh * g * visible * d
+    tb, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
+    ks, vs = (z.repeat_interleave(g, dim=2).transpose(1, 2) for z in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    return dict(
+        shape=f"q ({b}, {t}, {kh}, {g}, {d}) bf16, k/v ({b}, {t}, {kh}, {d}), causal",
+        max_abs_err=float((out.float() - ref.float()).abs().max()),
+        ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
+        device_ms=graph_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
+        plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=True, q_offset=0), 5),
+        bound_ms=tb, bound_by=by,
+        library_ms=time_ms(sdpa, 20), library_device_ms=graph_ms(sdpa, 20))
+
+
+def host_us(fn, reps: int = 1000) -> float:
+    """Host time of one call, in µs: ``reps`` calls in a row on the host
+    clock, after ten to warm up (the device is synchronised before and
+    after, outside the timing)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / reps * 1e6
+
+
+def g_split(rng) -> dict:
+    """accumulate_blocked's host cost at nmf's round (4 rows of 1,141,376
+    float32), split into the parts of its launch path, each called 1,000
+    times in a row (host µs per call): the library lookup, a device context,
+    the stream, the row checks, the ctypes pointer array, the output's
+    allocation, the launch counter, the ctypes call that launches the kernel,
+    and whole calls.  Imports what it times when it runs, so that a copy of
+    this script beside an older package times that package's launch path."""
+    import ctypes
+
+    from repro_torch.kernels.accumulate import kernel as acc_kernel
+
+    v = NMF_ROUND
+    rows = [cuda_normal(rng, (v,)) for _ in range(N_THREADS)]
+    out = torch.empty(v, device="cuda")
+    sigs = acc_kernel._SIGNATURES
+    lib = build.library("accumulate", sigs)
+    ptrs = (ctypes.c_void_p * N_THREADS)(*[r.data_ptr() for r in rows])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    x = torch.stack(rows)
+
+    def device_context():
+        with torch.cuda.device(out.device):
+            pass
+
+    parts = {
+        "build.library": lambda: build.library("accumulate", sigs),
+        "torch.cuda.device enter+exit": device_context,
+        "build.stream_of": lambda: build.stream_of(out),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.cuda.current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(0).cuda_stream,
+        "torch.cuda.current_device": torch.cuda.current_device,
+        "rows: contiguous, data_ptr": lambda: [r.contiguous().data_ptr() for r in rows],
+        "_rows_of": lambda: acc_kernel._rows_of(rows),
+        "ctypes pointer array": lambda: (ctypes.c_void_p * N_THREADS)(
+            *[r.data_ptr() for r in rows]),
+        "torch.empty(v)": lambda: torch.empty(v, device=out.device),
+        "torch.empty_like(row)": lambda: torch.empty_like(rows[0]),
+        "LaunchCounter.add": acc_kernel.launches.add,
+        "ctypes call (the launch)": lambda: lib.accumulate_rows(
+            0, ptrs, None, 0, N_THREADS, v, out.data_ptr(), 1, stream),
+        "accumulate_blocked(rows)": lambda: acc_kernel.accumulate_blocked(rows),
+        "torch.sum(x, 0)": lambda: torch.sum(x, dim=0),
+    }
+    if hasattr(acc_kernel, "accumulate_rows_unchecked"):
+        parts["accumulate_rows_unchecked(rows)"] = \
+            lambda: acc_kernel.accumulate_rows_unchecked(rows)
+    split = {name: host_us(fn) for name, fn in parts.items()}
+    log(f"accumulate_blocked host split at nmf's round ({N_THREADS} x {v} f32), us per "
+        "call over 1,000 calls:", json.dumps(split))
+    return split
+
+
+def time_g_in_pagerank(samples: list):
+    """Wrap the accumulator's entry to accumulate_blocked so that each call
+    in an app run appends to ``samples``: the host s of the call alone, CUDA
+    events recorded just before and after it, and, timed in the same thread
+    just before it, the host s of three of its parts (allocating the output,
+    asking for the stream, a ctypes call that launches nothing).  Returns a
+    function that puts the entry back."""
+    import repro_torch.core.accumulator as acc_mod
+    from repro_torch.kernels.accumulate import kernel as acc_kernel
+
+    real = acc_mod.accumulate_rows
+    lib = build.library("accumulate", acc_kernel._SIGNATURES)
+
+    def timed(rows):
+        parts = []
+        for part in (lambda: torch.empty_like(rows[0]),
+                     lambda: torch.cuda.current_stream(rows[0].get_device()).cuda_stream,
+                     lambda: lib.repro_cuda_error_string(0)):
+            t0 = time.perf_counter()
+            part()
+            parts.append(time.perf_counter() - t0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        out = real(rows)
+        host = time.perf_counter() - t0
+        end.record()
+        samples.append((host, start, end, parts))
+        return out
+
+    acc_mod.accumulate_rows = timed
+    return lambda: setattr(acc_mod, "accumulate_rows", real)
+
+
+def bf16_sparse_round(rng, counts: dict) -> None:
+    """One bf16 SPARSE round of 4 contributions through DAddAccumulator at
+    pagerank's V (k = V/4, blocks of 1,024), fused (one fused_topk_scatter
+    launch) and unfused (topk_compress per contribution, then the pairs
+    added in bf16, as the JAX package adds them), each held bit-exact
+    against the same round's plain path (the stable-sort selection)."""
+    import threading
+
+    from repro_torch.core import AccumMode, DAddAccumulator, GlobalStore
+    from repro_torch.core.sparse import blocked_topk_accumulate
+
+    v, k = LJ_VERTICES, LJ_VERTICES // 4
+    vecs = [rng_sparse(rng, (v,), 0.3).to(BF16) for _ in range(N_THREADS)]
+
+    def one_round(fused):
+        store = GlobalStore(device="cuda")
+        store.new_array("out", (v,), BF16)
+        acc = DAddAccumulator(store, "out", N_THREADS, N_NODES, AccumMode.SPARSE, k=k,
+                              fused=fused)
+        threads = []
+        for i, vec in enumerate(vecs):      # contributions arrive in list order
+            threads.append(threading.Thread(target=acc.accumulate, args=(vec,)))
+            threads[-1].start()
+            while acc._count < i + 1 and i + 1 < N_THREADS:
+                time.sleep(0.001)
+        for th in threads:
+            th.join()
+        return store.get("out")
+
+    for fused, expected in ((True, {"fused_topk_scatter": 1}),
+                            (False, {"topk_compress_bitonic": N_THREADS,
+                                     "fused_topk_scatter": 0})):
+        label = f"bf16 sparse round {'fused' if fused else 'unfused'}"
+        got, launched = run_app(label, counts, lambda: one_round(fused))
+        expect_launches(label, launched, expected)
+        ref = blocked_topk_accumulate(torch.stack(vecs), k, fused=fused, impl="torch")
+        if got.dtype != BF16 or not torch.equal(got, ref):
+            raise AssertionError(f"{label}: differs from its plain path")
+    log(f"bf16 sparse rounds at V={v}, k={k}: fused and unfused bit-exact with their "
+        "plain paths")
 
 
 def check_assign(pts, ctr, a, dist, pa, pd) -> None:
@@ -696,14 +1025,24 @@ def run_apps() -> dict:
         f"(made in {time.perf_counter() - t0:.1f} s)")
     time_credits(edges)
     traced = Session(n_nodes=N_NODES, threads_per_node=THREADS_PER_NODE, trace=True)
+    g_calls: list = []
+    restore = time_g_in_pagerank(g_calls)
     try:
         (r_auto, s_auto), launched = run_app("pagerank auto", counts, lambda: pagerank.fit(
             edges, LJ_VERTICES, iters=ITERS, mode="auto", session=traced))
         branches = [sp["args"]["mode"] for sp in
                     traced.tracer.spans("accumulate-round", "accumulate.round")]
     finally:
+        restore()
         traced.tracer.disable()
     log(f"pagerank auto: branch per round {branches}, wire {s_auto.wire_traffic()}")
+    log("pagerank auto: accumulate_blocked inside the run (4 worker threads), per call: "
+        f"host us {[round(h * 1e6, 1) for h, _, _, _ in g_calls]}, CUDA-event ms "
+        f"{[round(st.elapsed_time(en), 4) for _, st, en, _ in g_calls]}; just before each "
+        "call, host us of torch.empty_like(row), torch.cuda.current_stream(index)"
+        f".cuda_stream, a ctypes no-op: {[[round(t * 1e6, 1) for t in p] for *_, p in g_calls]}")
+    if len(g_calls) != ITERS:
+        raise AssertionError(f"pagerank auto: {len(g_calls)} accumulate_blocked calls timed")
     # every round at this scale takes the dense branch: one fold each
     expect_launches("pagerank auto", launched, {"accumulate_blocked": ITERS,
                                                 "fused_topk_scatter": 0})
@@ -734,6 +1073,7 @@ def run_apps() -> dict:
     log(f"pagerank sparse: wire {s_f.wire_traffic()} (fused == unfused), "
         f"rank sum auto {r_auto.sum():.6f} sparse {r_f.sum():.6f}")
     del edges
+    bf16_sparse_round(np.random.default_rng(SEED), counts)
 
     # -- kmeans, Covertype shape ----------------------------------------------
     x, _, labels = kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)
@@ -832,6 +1172,30 @@ def logit_gap(label: str, full, stepped) -> tuple:
     return delta, scale, same
 
 
+def run_lm_bf16_prefill(counts: dict) -> None:
+    """qwen3-1.7b at its full config in bf16, prefill 4 x 2048: the flash
+    kernel's bf16 body once per layer; the logits finite, of the full
+    shape."""
+    cfg = get_arch("qwen3-1.7b").replace(attention_impl="pallas", dtype="bfloat16")
+    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    prefill = make_prefill_step(model)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), device="cuda",
+                           dtype=torch.int32, generator=torch.Generator("cuda").manual_seed(SEED))
+    prefill({"tokens": tokens[:, :LM_CONSISTENCY]})      # warm-up, not counted
+    t0 = time.perf_counter()
+    logits, launched = run_app(f"lm qwen3-1.7b bf16 prefill {LM_BATCH}x{LM_PREFILL}", counts,
+                               lambda: prefill({"tokens": tokens}))
+    log(f"lm qwen3-1.7b bf16 prefill: "
+        f"{LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s")
+    expect_launches("qwen3-1.7b bf16 prefill", launched,
+                    {"flash_attention_bf16": cfg.n_layers, "flash_attention": cfg.n_layers})
+    if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError("qwen3-1.7b bf16 prefill: logits not finite or of the wrong shape")
+    del model, prefill, logits
+    torch.cuda.empty_cache()
+
+
 def run_lm() -> dict:
     # the app phase's sessions hold device tensors in reference cycles: free
     # them, so the peak memory read here is the models'
@@ -910,6 +1274,7 @@ def run_lm() -> dict:
         if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= cfg.vocab:
             raise AssertionError(f"{arch} serve: tokens {toks.shape} out of range")
         torch.cuda.empty_cache()
+    run_lm_bf16_prefill(counts)
     return counts
 
 
@@ -935,6 +1300,9 @@ def main() -> None:
     measured["flash_attention"] = check_flash(rng)
     measured["ssd_scan"] = check_ssd(rng)
     measured.update(check_receive(rng))
+    measured["flash_attention_bf16"] = check_flash_bf16(rng)
+    check_inputs(rng)
+    g_split(rng)
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "

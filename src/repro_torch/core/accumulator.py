@@ -47,16 +47,19 @@ from repro_torch.core.sparse import (
     sparse_beneficial_batch,
 )
 from repro_torch.device import to_tensor
-from repro_torch.kernels.accumulate.ops import accumulate as accumulate_rows
+from repro_torch.kernels.accumulate.kernel import (
+    accumulate_rows_unchecked as accumulate_rows)
 
 
 def _dense_sum(flats: list) -> torch.Tensor:
     """A buffered round's dense sum: the left fold ``flats[0] + flats[1] +
     …`` in arrival order.  Float32 rounds take the ``accumulate_blocked``
     kernel (its plain version on the CPU), which folds the rows in that
-    order in fp32 and so gives the same bits.  Rounds of any other dtype
-    keep the JAX package's fold: a bf16 fold rounds after each add, where
-    the kernel sums in fp32 and rounds once."""
+    order in fp32 and so gives the same bits; a round's rows are one shape
+    and device by construction, so it goes in without the public wrapper's
+    checks.  Rounds of any other dtype keep the JAX package's fold: a bf16
+    fold rounds after each add, where the kernel sums in fp32 and rounds
+    once."""
     if all(f.dtype == torch.float32 for f in flats):
         return accumulate_rows(flats)
     total = flats[0]

@@ -91,6 +91,19 @@ accumulate_kernel(RowPtrs rows, const char* base, long long stride_bytes, int n,
   }
 }
 
+// SMs of a device, asked of the runtime once per device: a call's host cost
+// is what decides this kernel against one torch.sum.
+static int sm_count(int device) {
+  static int cached[64] = {};
+  const bool cache = device >= 0 && device < 64;
+  int sms = cache ? cached[device] : 0;
+  if (sms == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (cache) cached[device] = sms;
+  }
+  return sms;
+}
+
 // dtype: 0 float32, 1 bfloat16.  The rows are row_ptrs[0..n) (a host array of
 // device pointers, n <= kMaxRows) when base is null, else base + t*stride_bytes.
 // vector: every row and out are 16-byte aligned (checked by the caller).
@@ -101,9 +114,9 @@ extern "C" int accumulate_rows(int dtype, const void* const* row_ptrs, const voi
   RowPtrs rows{};
   if (base == nullptr)
     for (int t = 0; t < n; ++t) rows.p[t] = row_ptrs[t];
-  int device = 0, sms = 0;
+  int device = 0;
   cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = sm_count(device);
   const long long per_thread = vector ? 16 / (dtype == 0 ? 4 : 2) : 1;
   const long long work = (v + per_thread - 1) / per_thread;
   long long blocks = (work + kThreads - 1) / kThreads;

@@ -1,4 +1,4 @@
-// Bitonic sorting network over packed 64-bit top-k keys, in shared memory.
+// Bitonic sorting network over packed 64-bit top-k keys.
 //
 // Replaces: src/repro/kernels/bitonic.py (bitonic_sort_desc / _compare_exchange),
 // the network inside fused_topk_scatter and topk_compress's bitonic body.
@@ -18,8 +18,10 @@
 // order is strict and the network's result deterministic.  NaN is outside the
 // contract, as in the JAX package.
 //
-// Bound: O(L log^2 L) compare-exchanges over L <= 1024 keys held in shared
-// memory, one __syncthreads per stage; no device-memory traffic.
+// Bound: O(L log^2 L) compare-exchanges over L keys, one __syncthreads per
+// stage.  The keys lie in shared memory while they fit a CTA's 227 KB, else in
+// a device scratch buffer: a stage's barrier orders global memory within the
+// block as it orders shared memory, so the network takes either pointer.
 #pragma once
 
 #include <cstdint>
@@ -39,8 +41,9 @@ __device__ __forceinline__ bool key_valid(unsigned long long key) {
   return (key >> 32) != 0ull;
 }
 
-// Sort s[0, L) descending; L a power of two.  Every thread of the block calls
-// it after the keys are written and a __syncthreads; it ends synchronised.
+// Sort s[0, L) descending; L a power of two, s in shared or global memory.
+// Every thread of the block calls it after the keys are written and a
+// __syncthreads; it ends synchronised.
 __device__ void bitonic_sort_desc(unsigned long long* s, int L) {
   for (int k = 2; k <= L; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {

@@ -3,9 +3,11 @@
 // Replaces: src/repro/kernels/ssd_scan/kernel.py (_ssd_kernel, ssd_scan_bh)
 //   and the layout of src/repro/kernels/ssd_scan/ops.py (ssd).
 //
-// xbar (b, T, H, P), a (b, T, H), B and C (b, T, G, N), all float32 and
-// row-major -> y (b, T, H, P).  Head h reads B/C of group h / (H / G)
-// directly, where the JAX wrapper repeats them over the heads of a group.
+// xbar (b, T, H, P), B and C (b, T, G, N), float32 or bfloat16 (one dtype),
+// a (b, T, H) float32, all row-major -> y (b, T, H, P) in xbar's dtype; every
+// element is converted to fp32 on load and the state stays fp32.  Head h
+// reads B/C of group h / (H / G) directly, where the JAX wrapper repeats them
+// over the heads of a group.
 // Per (batch, head), chunks of Q tokens in order, with cum = the running sum
 // of a within the chunk (<= 0) and S the fp32 state, zero at the start:
 //   y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) xbar_j + exp(cum_i) C_i S
@@ -14,7 +16,10 @@
 // upper triangle has cum_i - cum_j > 0 and would overflow).
 //
 // Design: one CTA of 256 threads (8 warps) per (batch, head) walks the T / Q
-// chunks.  A chunk's xbar, B (transposed) and C and the state stay in shared
+// chunks.  Where a chunk's working set (smem_floats) exceeds a CTA's 227 KB,
+// the wrapper passes as Q the largest divisor of the chunk that fits: the
+// chunk then runs as consecutive sub-chunks with the state carried between
+// them, the same recurrence.  A chunk's xbar, B (transposed) and C and the state stay in shared
 // memory (at Q 128, N 128, P 64: 32 + 64 + 64 + 32 KB of fp32), which
 // leaves no room for the Q x Q score matrix: the decay-weighted scores are
 // made one strip of 32 rows at a time (16 KB), each strip followed by its
@@ -37,6 +42,7 @@
 // chunk products is later work.
 
 #include "common.cuh"
+#include "dtype.cuh"
 
 namespace {
 
@@ -73,10 +79,11 @@ __device__ __forceinline__ void score_dots(const float* cs, const float* bt, con
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    ssd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-               const float* __restrict__ bm, const float* __restrict__ cm,
-               float* __restrict__ y, int seq, int heads, int groups, int P,
+    ssd_kernel(const T* __restrict__ x, const float* __restrict__ a,
+               const T* __restrict__ bm, const T* __restrict__ cm,
+               T* __restrict__ y, int seq, int heads, int groups, int P,
                int N, int Q) {
   extern __shared__ float smem[];
   const int bst = Q + 1;                 // padded row stride of B^T
@@ -97,11 +104,11 @@ __global__ void __launch_bounds__(THREADS)
   const int g = h / (heads / groups);
   const long long x_row = static_cast<long long>(heads) * P;
   const long long bc_row = static_cast<long long>(groups) * N;
-  const float* xb = x + static_cast<long long>(b) * seq * x_row + static_cast<long long>(h) * P;
+  const T* xb = x + static_cast<long long>(b) * seq * x_row + static_cast<long long>(h) * P;
   const float* ab = a + static_cast<long long>(b) * seq * heads + h;
-  const float* bb = bm + static_cast<long long>(b) * seq * bc_row + static_cast<long long>(g) * N;
-  const float* cb = cm + static_cast<long long>(b) * seq * bc_row + static_cast<long long>(g) * N;
-  float* yb = y + static_cast<long long>(b) * seq * x_row + static_cast<long long>(h) * P;
+  const T* bb = bm + static_cast<long long>(b) * seq * bc_row + static_cast<long long>(g) * N;
+  const T* cb = cm + static_cast<long long>(b) * seq * bc_row + static_cast<long long>(g) * N;
+  T* yb = y + static_cast<long long>(b) * seq * x_row + static_cast<long long>(h) * P;
 
   for (int e = tid; e < N * P; e += THREADS) st[e] = 0.0f;
 
@@ -110,12 +117,12 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     for (int e = tid; e < Q * P; e += THREADS) {
       const int j = e / P, p = e % P;
-      xs[e] = xb[(t0 + j) * x_row + p];
+      xs[e] = to_f(xb[(t0 + j) * x_row + p]);
     }
     for (int e = tid; e < Q * N; e += THREADS) {
       const int j = e / N, n = e % N;
-      bt[n * bst + j] = bb[(t0 + j) * bc_row + n];
-      cs[e] = cb[(t0 + j) * bc_row + n];
+      bt[n * bst + j] = to_f(bb[(t0 + j) * bc_row + n]);
+      cs[e] = to_f(cb[(t0 + j) * bc_row + n]);
     }
     for (int j = tid; j < Q; j += THREADS) cum[j] = ab[static_cast<long long>(t0 + j) * heads];
     __syncthreads();
@@ -206,7 +213,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
           for (int c = 0; c < PT; ++c) {
             const int p = pb + lane + 32 * c;
-            if (i < Q && p < P) yb[(t0 + i) * x_row + p] = diag[r][c] + ecum[i] * off[r][c];
+            if (i < Q && p < P)
+              yb[(t0 + i) * x_row + p] = from_f<T>(diag[r][c] + ecum[i] * off[r][c]);
           }
         }
       }
@@ -253,16 +261,28 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-extern "C" int ssd_scan_f32(const float* x, const float* a, const float* bm,
-                            const float* cm, float* y, int batch, int seq, int heads,
-                            int groups, int P, int N, int Q, void* stream) {
+template <typename T>
+static int launch(const void* x, const float* a, const void* bm, const void* cm, void* y,
+                  int batch, int seq, int heads, int groups, int P, int N, int Q,
+                  cudaStream_t s) {
   const size_t smem = smem_floats(Q, P, N) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(ssd_kernel,
+  cudaError_t e = cudaFuncSetAttribute(ssd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_kernel<<<static_cast<unsigned>(batch) * heads, THREADS, smem,
-               static_cast<cudaStream_t>(stream)>>>(x, a, bm, cm, y, seq, heads,
-                                                    groups, P, N, Q);
+  ssd_kernel<T><<<static_cast<unsigned>(batch) * heads, THREADS, smem, s>>>(
+      static_cast<const T*>(x), a, static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<T*>(y), seq, heads, groups, P, N, Q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: kF32 or kBF16, of xbar, B, C and y (a is float32).  Q: the chunk, or
+// the sub-chunk the wrapper picked so that smem_floats(Q, P, N) fits.
+extern "C" int ssd_scan(int dtype, const void* x, const float* a, const void* bm,
+                        const void* cm, void* y, int batch, int seq, int heads, int groups,
+                        int P, int N, int Q, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch<float>(x, a, bm, cm, y, batch, seq, heads, groups, P, N, Q, s);
+  return launch<__nv_bfloat16>(x, a, bm, cm, y, batch, seq, heads, groups, P, N, Q, s);
 }

@@ -8,8 +8,9 @@ as a left fold in fp32 and cast to x's dtype.  That is the association order
 of scatter-adding the threads' pairs in thread order, so the result is
 bit-exact with the compress→densify→add path.
 
-On the card one CUDA launch does it (``csrc/fused_scatter.cu``); a CPU tensor
-takes :func:`fused_topk_scatter_plain`, which the kernel is held against.
+On the card one CUDA launch does it (``csrc/fused_scatter.cu``, float32 or
+bfloat16, any block size); a CPU tensor takes :func:`fused_topk_scatter_plain`,
+which the kernel is held against.
 """
 
 from __future__ import annotations
@@ -19,12 +20,16 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.bitonic import sort_desc, topk_keys
 
-MAX_BLOCK = 1024  # one thread per column of a block
-
 launches = build.LaunchCounter("fused_topk_scatter")
 
-_SIGNATURES = {"fused_topk_scatter_f32": (build.PTR, build.PTR, build.INT, build.LONG,
-                                          build.INT, build.INT, build.PTR)}
+_SIGNATURES = {"fused_topk_scatter": (build.INT, build.PTR, build.PTR, build.INT, build.LONG,
+                                      build.INT, build.INT, build.PTR, build.PTR)}
+
+
+def lanes(block_eff: int) -> int:
+    """The lanes of one block's sort: ``block_eff`` padded to a power of two.
+    Their keys and fold accumulators take 12 bytes each."""
+    return 1 << (block_eff - 1).bit_length()
 
 
 def fused_topk_scatter_plain(x: torch.Tensor, per_block: int,
@@ -54,8 +59,8 @@ def fused_topk_scatter(x: torch.Tensor, *, per_block: int,
                        block_eff: int) -> torch.Tensor:
     """Sum of each row's blocked top-``per_block`` entries of x (N, V).
 
-    On the card this launches the CUDA kernel (float32 input, blocks of at
-    most 1024); on the CPU it runs the plain version."""
+    On the card this launches the CUDA kernel (float32 or bfloat16, any
+    block size); on the CPU it runs the plain version."""
     if x.ndim != 2:
         raise ValueError(f"fused_topk_scatter wants (N, V), got shape {tuple(x.shape)}")
     if per_block < 1:
@@ -66,19 +71,19 @@ def fused_topk_scatter(x: torch.Tensor, *, per_block: int,
         return fused_topk_scatter_plain(x, per_block, block_eff)
     if x.device.type != "cuda":
         raise ValueError(f"fused_topk_scatter runs on cpu or cuda, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the fused_topk_scatter kernel takes float32, got {x.dtype}")
+    dtype = build.dtype_code("fused_topk_scatter", x)
     n, v = x.shape
     block_eff = min(block_eff, v)
-    if block_eff > MAX_BLOCK:
-        raise ValueError(f"the fused_topk_scatter kernel takes blocks of at most "
-                         f"{MAX_BLOCK}, got {block_eff}")
     x = x.contiguous()
     out = torch.empty(v, dtype=x.dtype, device=x.device)
+    if v == 0:
+        return out
+    work = build.scratch(12 * lanes(block_eff), -(-v // block_eff), x.device)
     lib = build.library("fused_scatter", _SIGNATURES)
     with torch.cuda.device(x.device):
-        code = lib.fused_topk_scatter_f32(x.data_ptr(), out.data_ptr(), n, v,
-                                          block_eff, per_block, build.stream_of(x))
-    build.check(lib, "fused_topk_scatter_f32", code)
+        code = lib.fused_topk_scatter(dtype, x.data_ptr(), out.data_ptr(), n, v, block_eff,
+                                      per_block, None if work is None else work.data_ptr(),
+                                      build.stream_of(x))
+    build.check(lib, "fused_topk_scatter", code)
     launches.add()
     return out

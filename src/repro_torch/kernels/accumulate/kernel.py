@@ -9,12 +9,18 @@ the kernel is held against.
 
 Besides the (N, V) tensor the wrapper takes N same-shape 1-D rows: the host
 accumulator holds a round as separate tensors, and the kernel reads them
-through a list of device pointers, without a stacked copy.
+through a list of device pointers, without a stacked copy.  The accumulator
+calls :func:`accumulate_rows_unchecked`, which skips the row checks (a
+round's rows are one shape, dtype and device by construction) and, on the
+current device, the device switch: a call's host cost is what decides this
+kernel against one ``torch.sum``.
 """
 
 from __future__ import annotations
 
-import ctypes
+from functools import reduce
+from operator import or_
+from typing import Sequence
 
 import torch
 
@@ -22,7 +28,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.accumulate.ref import Rows, accumulate_plain
 
 MAX_ROW_POINTERS = 64   # rows passed by pointer (kMaxRows); more are stacked
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter("accumulate_blocked")
 
@@ -65,27 +70,57 @@ def accumulate_blocked(x: Rows, *, block_v: int = 1024) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"accumulate_blocked runs on cpu or cuda, not {dev}")
     dtype = rows[0].dtype
-    if dtype not in DTYPES:
+    if dtype not in build.DTYPES:
         raise TypeError(f"the accumulate_blocked kernel takes float32 or bfloat16, got {dtype}")
-    n, v = len(rows), rows[0].shape[0]
-    out = torch.empty(v, dtype=dtype, device=dev)
+    if isinstance(x, torch.Tensor):
+        return _fold_stacked(x.contiguous())
+    return accumulate_rows_unchecked(rows)
+
+
+def accumulate_rows_unchecked(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`accumulate_blocked` of N 1-D rows that the caller guarantees
+    are one shape, one dtype (float32 or bfloat16) and one device, without
+    checking them: the accumulator's entry.  A CPU round runs the plain
+    version."""
+    first = rows[0]
+    if not first.is_cuda:
+        return accumulate_plain(rows)
+    n = len(rows)
+    if n > MAX_ROW_POINTERS:
+        return _fold_stacked(torch.stack(rows))
+    out = torch.empty_like(first)           # (V,): a 1-D tensor's dense layout
+    v = out.numel()
     if v == 0:
         return out
-    size = rows[0].element_size()
-    if isinstance(x, torch.Tensor) or n > MAX_ROW_POINTERS:
-        stacked = (x if isinstance(x, torch.Tensor) else torch.stack(rows)).contiguous()
-        base, stride, ptrs = stacked.data_ptr(), v * size, None
-        vector = base % 16 == 0 and stride % 16 == 0
-    else:
-        rows = [r.contiguous() for r in rows]
-        base, stride = None, 0
-        ptrs = (ctypes.c_void_p * n)(*[r.data_ptr() for r in rows])
-        vector = all(r.data_ptr() % 16 == 0 for r in rows)
-    vector = vector and out.data_ptr() % 16 == 0
+    rows = [r.contiguous() for r in rows]   # alive until the launch is queued
+    ptrs = [r.data_ptr() for r in rows]
+    dst = out.data_ptr()
+    vector = not reduce(or_, ptrs, dst) & 15
+    return _launch((build.PTR * n)(*ptrs), None, 0, n, v, out, dst, vector)
+
+
+def _fold_stacked(x: torch.Tensor) -> torch.Tensor:
+    """The fold of a contiguous (N, V) tensor, read from its base pointer."""
+    n, v = x.shape
+    out = torch.empty(v, dtype=x.dtype, device=x.device)
+    if v == 0:
+        return out
+    base, stride, dst = x.data_ptr(), v * x.element_size(), out.data_ptr()
+    vector = not (base | stride | dst) & 15
+    return _launch(None, base, stride, n, v, out, dst, vector)
+
+
+def _launch(ptrs, base, stride: int, n: int, v: int, out: torch.Tensor, dst: int,
+            vector: bool) -> torch.Tensor:
+    index = out.get_device()
+    if index != torch.cuda.current_device():   # switch devices only where needed
+        with torch.cuda.device(index):
+            return _launch(ptrs, base, stride, n, v, out, dst, vector)
     lib = build.library("accumulate", _SIGNATURES)
-    with torch.cuda.device(dev):
-        code = lib.accumulate_rows(DTYPES[dtype], ptrs, base, stride, n, v, out.data_ptr(),
-                                   int(vector), build.stream_of(out))
-    build.check(lib, "accumulate_rows", code)
+    # the stream asked for by device index: torch's shortest public path to it
+    code = lib.accumulate_rows(build.DTYPES[out.dtype], ptrs, base, stride, n, v, dst, vector,
+                               torch.cuda.current_stream(index).cuda_stream)
+    if code:
+        build.check(lib, "accumulate_rows", code)
     launches.add()
     return out

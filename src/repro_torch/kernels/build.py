@@ -9,7 +9,8 @@ flags, so an edited source is never served by a stale library.
 Nothing is built when a module is imported: the first launch of a kernel
 builds its library (:func:`library`), under one lock, because the host
 backend's worker threads reach the same kernel at the same moment on the
-first round.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+first round; once loaded, a library is read without the lock.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Each wrapper counts its launches on a :class:`LaunchCounter`, incremented
 exactly where the kernel is launched; :func:`launch_counts` and
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fused_scatter", "topk_compress", "kmeans_assign", "flash_attention",
            "ssd_scan", "accumulate", "scatter_add")
-HEADERS = ("common.cuh", "bitonic.cuh")
+HEADERS = ("common.cuh", "bitonic.cuh", "dtype.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,11 @@ PTR = ctypes.c_void_p
 INT = ctypes.c_int
 LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
+
+# the element types the kernels take, as their C entry points' dtype code
+# (csrc/dtype.cuh: kF32, kBF16)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SHARED_BYTES = 232448  # a CTA's shared memory on Hopper (227 KB)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -144,6 +150,9 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
 
     ``signatures`` maps each C function to its ``argtypes``; every function
     returns the ``cudaError_t`` of its launch as an int."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -170,3 +179,22 @@ def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(fn: str, *tensors: torch.Tensor) -> int:
+    """The C dtype code of ``tensors``, which must all be float32 or all
+    bfloat16; raises ``TypeError`` naming the kernel ``fn`` otherwise."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"the {fn} kernel takes float32 or bfloat16 inputs of one dtype, "
+                        f"got {[str(t.dtype) for t in tensors]}")
+    return DTYPES[dtype]
+
+
+def scratch(nbytes: int, nblocks: int, device: torch.device, reserved: int = 0):
+    """None while one CTA's working set of ``nbytes`` (beside ``reserved``
+    bytes of static shared memory) fits in shared memory; else a device
+    buffer of ``nblocks`` such sets, which the kernel works in instead."""
+    if nbytes + reserved <= MAX_SHARED_BYTES:
+        return None
+    return torch.empty(nblocks * nbytes, dtype=torch.uint8, device=device)

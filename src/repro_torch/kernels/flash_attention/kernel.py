@@ -24,6 +24,8 @@ MAX_HEAD_DIM = 256                 # dk and dv: the kernel's widest instantiatio
 DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 launches = build.LaunchCounter("flash_attention")
+# the bf16 body's launches, counted apart as well (each is also one of the above)
+launches_bf16 = build.LaunchCounter("flash_attention_bf16")
 
 _ENTRY = (build.PTR, build.PTR, build.PTR, build.PTR, build.INT, build.INT, build.INT,
           build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
@@ -97,6 +99,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   1.0 / math.sqrt(dk), build.stream_of(q))
     build.check(lib, name, code)
     launches.add()
+    if q.dtype == torch.bfloat16:
+        launches_bf16.add()
     return out
 
 

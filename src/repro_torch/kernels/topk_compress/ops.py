@@ -5,11 +5,12 @@ of length ``nblocks * k_per_block``; per block of ``block_v`` entries, the
 ``k_per_block`` largest |x| in (|x| desc, index asc) order.  Lanes past V
 and exhausted slots give ``(0, 0)``; a valid zero keeps its real index.
 
-Two CUDA bodies compute it (``csrc/topk_compress.cu``), element-wise
-identical: ``method="argmax"`` (k block-wide argmax rounds) and
-``method="bitonic"`` (one sort of the block, whatever k is).  ``method=None``
-takes bitonic from :data:`BITONIC_MIN_K` on.  A CPU tensor takes
-:func:`topk_compress_plain`, which both bodies are held against.
+Two CUDA bodies compute it (``csrc/topk_compress.cu``, float32 or
+bfloat16, any block size), element-wise identical: ``method="argmax"`` (k
+block-wide argmax rounds) and ``method="bitonic"`` (one sort of the block,
+whatever k is).  ``method=None`` takes bitonic from :data:`BITONIC_MIN_K`
+on.  A CPU tensor takes :func:`topk_compress_plain`, which both bodies are
+held against.
 """
 
 from __future__ import annotations
@@ -24,12 +25,21 @@ from repro_torch.kernels.bitonic import key_pos, key_valid, sort_desc, topk_keys
 # both bodies, and this moves only on that evidence.
 BITONIC_MIN_K = 65
 METHODS = ("argmax", "bitonic")
-MAX_BLOCK = 1024  # one CTA holds a whole block
+ARGMAX_STATIC_SMEM = 256  # the argmax body's per-warp winners (csrc/topk_compress.cu)
 
 launches = {m: build.LaunchCounter(f"topk_compress_{m}") for m in METHODS}
 
-_SIGNATURES = {"topk_compress_f32": (build.PTR, build.PTR, build.PTR, build.LONG,
-                                     build.INT, build.INT, build.INT, build.PTR)}
+_SIGNATURES = {"topk_compress": (build.INT, build.PTR, build.PTR, build.PTR, build.LONG,
+                                 build.INT, build.INT, build.INT, build.PTR, build.PTR)}
+
+
+def work_bytes(block_v: int, method: str) -> int:
+    """One CTA's working set: the argmax body's fp32 magnitudes of the
+    block, or the bitonic body's 64-bit keys of the block padded to a power
+    of two (at least a warp)."""
+    if method == "argmax":
+        return 4 * block_v
+    return 8 * (1 << (max(block_v, 32) - 1).bit_length())
 
 
 def topk_compress_plain(x: torch.Tensor, k_per_block: int, block_v: int):
@@ -55,8 +65,8 @@ def topk_compress(x: torch.Tensor, *, k_per_block: int, block_v: int = 1024,
                   method: str | None = None):
     """``(idx int32, vals)`` of the blocked top-k of a 1-D ``x``.
 
-    On the card this launches the CUDA body ``method`` picks (float32 input,
-    blocks of at most 1024); on the CPU it runs the plain version."""
+    On the card this launches the CUDA body ``method`` picks (float32 or
+    bfloat16, any block size); on the CPU it runs the plain version."""
     if x.ndim != 1:
         raise ValueError(f"topk_compress wants a 1-D vector, got shape {tuple(x.shape)}")
     if k_per_block < 1:
@@ -74,21 +84,20 @@ def topk_compress(x: torch.Tensor, *, k_per_block: int, block_v: int = 1024,
         return topk_compress_plain(x, k_per_block, block_v)
     if x.device.type != "cuda":
         raise ValueError(f"topk_compress runs on cpu or cuda, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the topk_compress kernel takes float32, got {x.dtype}")
-    if block_v > MAX_BLOCK:
-        raise ValueError(f"the topk_compress kernel takes blocks of at most "
-                         f"{MAX_BLOCK}, got {block_v}")
+    dtype = build.dtype_code("topk_compress", x)
     x = x.contiguous()
     v = x.shape[0]
     nblocks = -(-v // block_v)
     idx = torch.empty(nblocks * k_per_block, dtype=torch.int32, device=x.device)
     vals = torch.empty(nblocks * k_per_block, dtype=x.dtype, device=x.device)
+    work = build.scratch(work_bytes(block_v, method), nblocks, x.device,
+                         ARGMAX_STATIC_SMEM if method == "argmax" else 0)
     lib = build.library("topk_compress", _SIGNATURES)
     with torch.cuda.device(x.device):
-        code = lib.topk_compress_f32(x.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-                                     v, block_v, k_per_block,
-                                     int(method == "bitonic"), build.stream_of(x))
-    build.check(lib, "topk_compress_f32", code)
+        code = lib.topk_compress(dtype, x.data_ptr(), idx.data_ptr(), vals.data_ptr(), v,
+                                 block_v, k_per_block, int(method == "bitonic"),
+                                 None if work is None else work.data_ptr(),
+                                 build.stream_of(x))
+    build.check(lib, "topk_compress", code)
     launches[method].add()
     return idx, vals
