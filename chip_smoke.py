@@ -25,11 +25,12 @@ Phases, in order; any failure raises and the run exits non-zero:
              test_kernels.py's tolerances at its shapes and at the shapes
              the LM main path gives them; flash_attention also at the edges
              of its tiling (head dims 20, 80 and 192/128, T > S, a
-             decode-shaped T = 1, the qwen3 shape at batch 1); its fp32
-             body's -Xptxas -v lines (registers, spills) are printed, and
-             its bound is the 3xTF32 tensor-core one (the fp32 pipes'
-             printed beside it).  The bf16 body is timed at the qwen3-1.7b
-             prefill shape beside SDPA in bf16 (a row of its own).  Then the
+             decode-shaped T = 1, the qwen3 shape at batch 1); both bodies'
+             -Xptxas -v lines (registers, spills) are printed; the fp32
+             body's bound is the 3xTF32 tensor-core one (the fp32 pipes'
+             printed beside it).  The bf16 (wgmma) body is timed at the
+             qwen3-1.7b prefill shape beside SDPA in bf16 (a row of its
+             own), its bound the flops at 989 TFLOP/s.  Then the
              inputs repro's kernels take off the float32 main path
              (A_INPUTS, C_INPUTS, D_INPUTS; bf16 at the main-path shapes;
              ssd_scan at chunk 256), each held and timed beside its plain
@@ -579,9 +580,10 @@ def check_inputs(rng) -> dict:
 
 
 def check_flash_bf16(rng) -> dict:
-    """flash_attention's bf16 body at the qwen3-1.7b prefill shape (q (4,
-    2048, 8, 2, 128), causal) against its plain version (limit 3e-2), timed
-    beside SDPA in bf16 on the same inputs (K/V expanded to the 16 heads)."""
+    """flash_attention's bf16 (wgmma) body at the qwen3-1.7b prefill shape
+    (q (4, 2048, 8, 2, 128), causal) against its plain version (limit
+    3e-2), timed beside SDPA in bf16 on the same inputs (K/V expanded to the
+    16 heads); its bound is the flops at 989 TFLOP/s of bf16."""
     b, t, kh, g, d = LM_BATCH, LM_PREFILL, 8, 2, 128
     q = cuda_normal(rng, (b, t, kh, g, d), dtype=BF16)
     k, v = (cuda_normal(rng, (b, t, kh, d), dtype=BF16) for _ in range(2))
@@ -591,6 +593,9 @@ def check_flash_bf16(rng) -> dict:
     visible = t * (t + 1) // 2
     nbytes, flops = 2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * b * kh * g * visible * d
     tb, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    log(f"flash_attention bf16 bound at the qwen3 prefill shape: {tb:.4f} ms ({by}: "
+        f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s); shared memory per CTA "
+        f"{smem_bytes(d, d, BF16)} bytes")
     qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
     ks, vs = (z.repeat_interleave(g, dim=2).transpose(1, 2) for z in (k, v))
 
@@ -1292,8 +1297,9 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} sources")
-    for line in ptxas_lines(logs.get("flash_attention", ""), "flash_tf32_kernel"):
-        log("flash_attention_f32 ptxas:", line)
+    for name, marker in (("f32", "flash_tf32_kernel"), ("bf16", "flash_wgmma_kernel")):
+        for line in ptxas_lines(logs.get("flash_attention", ""), marker):
+            log(f"flash_attention_{name} ptxas:", line)
 
     rng = np.random.default_rng(SEED)
     measured = check_kernels(rng)

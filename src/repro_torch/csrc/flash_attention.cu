@@ -68,19 +68,50 @@
 //   and the CTAs with the most tiles are launched first (query tiles in
 //   reverse order).  At d 128: 215 KB of shared memory and 8 warps per SM.
 //
-// bfloat16 (the anonymous namespace): the SIMT body on the fp32 pipes.  One
-//   CTA of 256 threads (16 x 16) per (64-query tile, head) walks KV tiles of
-//   64 keys; Q (fp32) stays in shared memory, the K and V tiles are staged
-//   there row by row, and the 64 x 64 probability tile goes through shared
-//   memory between the two products.  Each thread owns a 4 x 4 block of
-//   scores (rows ty*4.., keys tx + 16j) and a 4 x 4*ceil(dv/64) block of the
-//   output accumulator in registers (dv columns (tx + 16g)*4 .. +3); the row
-//   max and sum reduce over the 16 lanes of a row with shuffles.  Shared
-//   memory is read four floats at a time (float4); the Q/K row stride is an
-//   odd number of 16-byte units, so the lanes reading different K rows hit
-//   different banks.  The next K/V tile is loaded into registers while the
-//   current one is computed.  Every sum runs over d (or the keys) in order,
-//   in fp32 FMAs.  wgmma on bf16 tiles and TMA staging are later work.
+// bfloat16 (namespace wg): both products on the tensor cores with wgmma.
+//   Bound: the same 4 * T * S_visible * d flops per head, at 989 TFLOP/s of
+//   dense bf16 (68.7 GFLOP and 0.0695 ms at qwen3-1.7b's prefill shape, q
+//   (4, 2048, 8, 2, 128), causal); the bytes lie far below.  On Hopper only
+//   wgmma reaches that rate.
+//   Design.  A CTA of two warpgroups (256 threads) owns BQ = 128 queries of
+//   one head, 64 per warpgroup, and walks KV tiles of BK keys (128; 64 at d
+//   256).  Q (once per CTA) and K, V (a 2-stage ring) sit in shared memory
+//   in bf16, in the 128-byte-swizzled layout that wgmma's descriptors read
+//   (layout type B128): 64-column slabs of rows x 128 bytes, one after
+//   another, the 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+//   cp.async fills them, 16 bytes a copy (8, with .ca, where dk or dv % 8 ==
+//   4); rows past T or S and the padding columns are zero-filled by the copy
+//   itself.  One barrier per tile: after it, the copy of tile i+1 goes into
+//   tile i-1's stage and lands behind tile i's products.  dk is padded with
+//   zeros to a multiple of 16 (the k-steps run over round16(dk)), dv to the
+//   instantiation's width (64, 128 or 256); padded outputs are not stored.
+//   - S = Q.K^T: wgmma m64n{BK}k16, both operands from shared memory and
+//     K-major (as stored); one k-step per 16 columns of dk, the descriptor's
+//     start moved 32 bytes along a slab's rows, then on to the next slab.
+//   - Online softmax on S's accumulator layout: thread (warp w of the
+//     warpgroup, g = lane/4, t = lane%4) holds rows 16w + g and 16w + g + 8
+//     at keys 8j + 2t, 8j + 2t + 1 of each 8-key block j (mma.sync's C
+//     layout); the row max and sum reduce over the 4 lanes of a quad.  The
+//     scores are scaled by log2(e)/sqrt(dk) and exponentiated by exp2: the
+//     same p = exp(s - m).  l sums the fp32 p, before P is rounded.
+//   - O += P.V with P from registers: k16 slice s of P (keys 16s..16s+15) is
+//     blocks 2s and 2s+1 of S's accumulator, packed in bf16 pairs
+//     (cvt.rn.bf16x2.f32), which is wgmma's A-fragment layout, so P never
+//     touches shared memory.  V is the B operand, MN-major (dv contiguous,
+//     as stored), with the transpose bit set: m64n64k16 at d 64, else
+//     m64n128k16 per 128 columns of dv.
+//   Precision: products of bf16 operands are exact in fp32 and every sum is
+//   fp32; the one rounding the fp32 reference has not is P to bf16 (2^-9
+//   relative per p).  At d 128: 161 KB of shared memory, one CTA of 8 warps
+//   per SM.  Query tiles launch in reverse order (the longest causal rows
+//   first), a warpgroup skips the KV tiles that none of its rows can see,
+//   and the mask arithmetic runs only on tiles that cross the diagonal or S.
+//   What holds it back (scripts/torch_flash_bf16_phases.py times each phase
+//   on the card): a tile's phases run in series, both warpgroups in step --
+//   issuing the next tile's copies, S, the softmax (bound by the exp2 rate
+//   of the special-function units), O -- so the tensor cores sit idle for
+//   most of a tile.  TMA with a producer warp, ping-pong between the
+//   warpgroups and the softmax of tile i under tile i+1's S are later work.
 
 #include <cuda_bf16.h>
 
@@ -88,139 +119,275 @@
 
 #include "common.cuh"
 
-namespace {
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores, swizzled cp.async staging
+// ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;           // query rows per CTA
-constexpr int BK = 64;           // keys per KV tile
-constexpr int TX = 16;           // lanes across keys / output columns
-constexpr int TY = 16;           // lanes across query rows
-constexpr int RQ = BQ / TY;      // query rows per thread (4)
-constexpr int RK = BK / TX;      // keys per thread (4)
-constexpr int THREADS = TX * TY;
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BQ = 128;       // query rows per CTA, 64 per warpgroup
+constexpr int THREADS = 256;  // two warpgroups
 
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// keys per KV tile, per head-dim class
+template <int DMAX> struct Tile { static constexpr int BK = 128; };
+template <> struct Tile<256> { static constexpr int BK = 64; };
 
-// max / sum over the 16 lanes of one query row (lanes ty*16 .. ty*16+15)
-__device__ __forceinline__ float row_max(float v) {
-  for (int off = TX / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-  for (int off = TX / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Q and two stages of K and of V, DMAX bf16 columns each, plus the slack
+// that aligns the tiles to the 1024 bytes of a swizzle atom.
+template <int DMAX>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(BQ + 4 * Tile<DMAX>::BK) * DMAX * sizeof(bf16) + 1024;
 }
 
-// Row stride of the Q and K tiles: a multiple of 4 floats (16-byte rows for
-// float4 reads) that is an odd number of 16-byte units, so the 8 lanes of a
-// quarter-warp reading 8 different K rows at one column hit 8 different
-// bank groups.
-__host__ __device__ inline int qk_stride(int dk) { return dk + ((dk / 4) % 2 == 0 ? 4 : 8); }
-
-size_t smem_floats(int dk, int dv) {
-  return static_cast<size_t>(BQ + BK) * qk_stride(dk) + static_cast<size_t>(BK) * (dv + 4) +
-         static_cast<size_t>(BQ) * (BK + 4);
+// Byte offset of element (r, c) in a swizzled tile of `rows` rows: slab c /
+// 64 (rows x 128 bytes), row r, its 16-byte chunk (c % 64) / 8 at chunk
+// ((c % 64) / 8) ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (c >> 6) * rows * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 8 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, made visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq_q, int seq_k,
-                 int kv_heads, int group, int dk, int dv, int causal, int q_offset,
-                 float scale) {
-  constexpr int CG = DMAX / (4 * TX);  // float4 column groups per thread
-  constexpr int WARPS = THREADS / 32;
-  constexpr int LR = BK / WARPS;       // tile rows each warp loads (8)
-  constexpr int LC = DMAX / 32;        // columns each lane loads per row
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int kst = qk_stride(dk);
-  const int vst = dv + 4;
-  const int pst = BK + 4;
-  float* qs = smem;                      // BQ x kst
-  float* ks = qs + BQ * kst;             // BK x kst
-  float* vs = ks + BK * kst;             // BK x (dv+4)
-  float* ps = vs + BK * vst;             // BQ x (BK+4), probabilities
+// Rows [row0, row0 + ROWS) of a bf16 matrix (`limit` rows, `width`
+// columns, row stride `stride`) into the swizzled tile at `dst`, columns [0,
+// pw): VEC elements a cp.async.  A thread keeps one piece of the row and
+// steps down the rows THREADS / (DMAX / VEC) at a time; rows past `limit`
+// and columns past `width` are zero-filled by the copy.
+template <int DMAX, int VEC, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long stride,
+                                          int row0, int limit, int width, int pw) {
+  constexpr int CH = DMAX / VEC;      // pieces of a row
+  constexpr int STEP = THREADS / CH;  // rows a pass
+  static_assert(THREADS % CH == 0 && ROWS % STEP == 0, "whole passes over the tile");
+  const int c = (threadIdx.x % CH) * VEC;
+  if (c >= pw) return;
+  const int r0 = threadIdx.x / CH;
+  const bool col_ok = c < width;
+  const bf16* from = src + (row0 + r0) * stride + c;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int r = r0 + i * STEP;
+    const bool ok = col_ok && row0 + r < limit;
+    cp_async<VEC * 2>(dst + swz(r, c, ROWS), ok ? from : src, ok);
+    from += STEP * stride;
+  }
+}
+
+// A wgmma shared-memory descriptor with 128-byte swizzle: start address,
+// leading and stride byte offsets (each in 16-byte units), layout type 1.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator registers across the wgmmas
+// that are in flight on them
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define WG_D8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_R32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_R64                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A.B^T, A (64 x 16) and B (N x 16) both K-major in shared memory;
+// scale_d == 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "S tiles are 64 or 128 keys wide");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+        : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48),
+          WG_D8(56)
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A.B, A (64 x 16) from registers (the A-fragment layout), B (16 x N)
+// MN-major in shared memory (the transpose bit set)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  static_assert(N == 64 || N == 128, "O is done 64 or 128 columns at a time");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48),
+          WG_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_D8
+#undef WG_R32
+#undef WG_R64
+
+// S = Q.K^T over NK k-steps of 16 columns: the descriptors' start moves 32
+// bytes along a slab's 128-byte rows, then on to the next slab.  Each NK is
+// one straight run of wgmmas from fence to wait, so no register copy lands
+// between them (ptxas would serialise the wgmmas); qk_steps picks the run
+// for the k-steps round16(dk) / 16.
+template <int BK, int NK>
+__device__ __forceinline__ void qk(float (&s)[BK / 2], uint64_t q_desc, uint64_t k_desc,
+                                   uint32_t q_slab, uint32_t k_slab) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint32_t step = (kk & 3) * 32;
+    wgmma_ss<BK>(s, q_desc + (((kk >> 2) * q_slab + step) >> 4),
+                 k_desc + (((kk >> 2) * k_slab + step) >> 4), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+}
+template <int BK, int NK, int MAXK>
+__device__ __forceinline__ void qk_steps(int nk, float (&s)[BK / 2], uint64_t q_desc,
+                                         uint64_t k_desc, uint32_t q_slab, uint32_t k_slab) {
+  if constexpr (NK < MAXK) {
+    if (nk > NK) return qk_steps<BK, NK + 1, MAXK>(nk, s, q_desc, k_desc, q_slab, k_slab);
+  }
+  qk<BK, NK>(s, q_desc, k_desc, q_slab, k_slab);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // cvt.rn.bf16x2.f32
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, int seq_q, int seq_k,
+                       int kv_heads, int group, int dk, int dv, int causal, int q_offset,
+                       float scale) {
+  constexpr int BK = Tile<DMAX>::BK;
+  constexpr int NT = BK / 8;                     // 8-key blocks of S
+  constexpr int NP = BK / 16;                    // k16 slices of P
+  constexpr int ON = DMAX == 64 ? 64 : 128;      // columns of O per wgmma
+  constexpr int NH = DMAX / ON;                  // wgmmas per k-step of O
+  constexpr uint32_t Q_BYTES = BQ * DMAX * sizeof(bf16);
+  constexpr uint32_t KV_BYTES = BK * DMAX * sizeof(bf16);
+  constexpr uint32_t Q_SLAB = BQ * 128, KV_SLAB = BK * 128;  // bytes of one 64-column slab
+  extern __shared__ uint8_t smem[];
+  const uint32_t qs = (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+  const uint32_t ks = qs + Q_BYTES;       // 2 stages of KV_BYTES
+  const uint32_t vs = ks + 2 * KV_BYTES;  // 2 stages of KV_BYTES
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+  const int wg = tid >> 7;           // warpgroup: rows 64 wg .. 64 wg + 63 of the tile
+  const int warp = (tid >> 5) & 3;   // warp of the warpgroup: 16 of its rows
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int heads = kv_heads * group;
-  const int head = blockIdx.x % heads;   // kh * group + g
+  const int head = blockIdx.x % heads;  // kh * group + g
   const int b = blockIdx.x / heads;
   const int kh = head / group;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
+  const int qg = q0 + 64 * wg;                        // this warpgroup's first row
+  const int qw = qg + 16 * warp;                      // this warp's first row
 
   const long long q_row = static_cast<long long>(heads) * dk;
   const long long o_row = static_cast<long long>(heads) * dv;
   const long long k_row = static_cast<long long>(kv_heads) * dk;
   const long long v_row = static_cast<long long>(kv_heads) * dv;
-  const T* qb = q + static_cast<long long>(b) * seq_q * q_row + static_cast<long long>(head) * dk;
-  const T* kb = k + static_cast<long long>(b) * seq_k * k_row + static_cast<long long>(kh) * dk;
-  const T* vb = v + static_cast<long long>(b) * seq_k * v_row + static_cast<long long>(kh) * dv;
-  T* ob = o + static_cast<long long>(b) * seq_q * o_row + static_cast<long long>(head) * dv;
+  const bf16* qb = q + static_cast<long long>(b) * seq_q * q_row + static_cast<long long>(head) * dk;
+  const bf16* kb = k + static_cast<long long>(b) * seq_k * k_row + static_cast<long long>(kh) * dk;
+  const bf16* vb = v + static_cast<long long>(b) * seq_k * v_row + static_cast<long long>(kh) * dv;
+  bf16* ob = o + static_cast<long long>(b) * seq_q * o_row + static_cast<long long>(head) * dv;
 
-  // Tiles are loaded row by row: warp w takes rows w, w + 8, ..., its lanes
-  // the columns lane + 32u (coalesced, no division).  Every load of a tile
-  // is issued before the first of them is stored.
-  for (int r0 = 0; r0 < BQ; r0 += BK) {
-    float qreg[LR][LC];
-#pragma unroll
-    for (int r = 0; r < LR; ++r) {
-      const int t = q0 + r0 + warp + WARPS * r;
-#pragma unroll
-      for (int u = 0; u < LC; ++u) {
-        const int c = lane + 32 * u;
-        qreg[r][u] = (t < seq_q && c < dk) ? load_f(qb + t * q_row + c) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < LR; ++r)
-#pragma unroll
-      for (int u = 0; u < LC; ++u) {
-        const int c = lane + 32 * u;
-        if (c < dk) qs[(r0 + warp + WARPS * r) * kst + c] = qreg[r][u];
-      }
-  }
-
-  // the next K/V tile, in registers while the current one is computed;
-  // V rows past S are 0 (no 0 * garbage)
-  float kreg[LR][LC], vreg[LR][LC];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < LR; ++r) {
-      const int key = k0 + warp + WARPS * r;
-#pragma unroll
-      for (int u = 0; u < LC; ++u) {
-        const int c = lane + 32 * u;
-        kreg[r][u] = (key < seq_k && c < dk) ? load_f(kb + key * k_row + c) : 0.0f;
-        vreg[r][u] = (key < seq_k && c < dv) ? load_f(vb + key * v_row + c) : 0.0f;
-      }
-    }
+  const int pk = (dk + 15) & ~15;  // dk padded to the k-steps
+  auto load_q = [&]() {
+    if (dk % 8 == 0)
+      load_tile<DMAX, 8, BQ>(qs, qb, q_row, q0, seq_q, dk, pk);
+    else
+      load_tile<DMAX, 4, BQ>(qs, qb, q_row, q0, seq_q, dk, pk);
   };
-
-  float m[RQ], l[RQ];
-  float4 acc[RQ][CG];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < CG; ++g) acc[i][g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+  auto load_kv = [&](uint32_t stage, int row0) {
+    if (dk % 8 == 0)
+      load_tile<DMAX, 8, BK>(ks + stage, kb, k_row, row0, seq_k, dk, pk);
+    else
+      load_tile<DMAX, 4, BK>(ks + stage, kb, k_row, row0, seq_k, dk, pk);
+    if (dv % 8 == 0)
+      load_tile<DMAX, 8, BK>(vs + stage, vb, v_row, row0, seq_k, dv, DMAX);
+    else
+      load_tile<DMAX, 4, BK>(vs + stage, vb, v_row, row0, seq_k, dv, DMAX);
+  };
 
   // keys any query of this tile can see (causal: position <= the last
   // query's q_offset + t)
@@ -228,153 +395,169 @@ __global__ void __launch_bounds__(THREADS)
   if (causal) kv_end = min(seq_k, q_offset + min(q0 + BQ, seq_q));
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  fetch(0);
+  load_q();
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // Descriptors of stage 0 (rows 128 bytes apart, 8-row atoms 1024 bytes
+  // apart); a k-step, a slab and a stage move only the start address.  Q and
+  // K are K-major (the leading offset unused under the swizzle); V is
+  // MN-major: its leading offset steps from one 64-column slab to the next.
+  const uint64_t q_desc = make_desc(qs + 64 * wg * 128, 16, 1024);
+  const uint64_t k_desc = make_desc(ks, 16, 1024);
+  const uint64_t v_desc = make_desc(vs, KV_SLAB, 1024);
+
+  // s[4j + e]: row g + 8(e/2) of the warp's 16, key k0 + 8j + 2t + e%2;
+  // acc[h][4j + e]: the same row, column ON h + 8j + 2t + e%2
+  float s[BK / 2], acc[NH][ON / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) acc[h][i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  const float scale2 = scale * LOG2E;
+  const int qpos = q_offset + qw + g;  // position of row g (row g + 8: +8)
+
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
-    __syncthreads();  // the previous tile's ks / vs / ps are consumed
-#pragma unroll
-    for (int r = 0; r < LR; ++r)
-#pragma unroll
-      for (int u = 0; u < LC; ++u) {
-        const int j = warp + WARPS * r, c = lane + 32 * u;
-        if (c < dk) ks[j * kst + c] = kreg[r][u];
-        if (c < dv) vs[j * vst + c] = vreg[r][u];
-      }
-    __syncthreads();
-    if (tile + 1 < n_tiles) fetch(k0 + BK);
+    const uint32_t stage = (tile & 1) * KV_BYTES;
+    cp_async_wait_all();   // this tile's copies (the only ones in flight) have landed
+    fence_async_shared();  // ... visible to wgmma
+    __syncthreads();       // ... for every thread, and both warpgroups are done with tile - 1
+    if (tile + 1 < n_tiles) {  // tile + 1 into tile - 1's stage, behind this tile's products
+      load_kv(((tile + 1) & 1) * KV_BYTES, k0 + BK);
+      cp_async_commit();
+    }
+    // a warpgroup whose rows are all past T, or (causal) all before this
+    // tile's first key, has nothing to add here
+    if (qg >= seq_q || (causal && k0 > q_offset + qg + 63)) continue;
 
-    // scores of rows ty*4 + i against keys tx + 16j, four columns of d per step
-    float s[RQ][RK];
+    // S = Q.K^T, one k-step per 16 columns of dk
+    pin(s);
+    qk_steps<BK, 1, DMAX / 16>(pk / 16, s, q_desc, k_desc + (stage >> 4), Q_SLAB, KV_SLAB);
+    pin(s);
+
+    // mask (only on a tile that crosses the diagonal or S): a masked score
+    // is -1e30
+    if (k0 + BK > seq_k || (causal && k0 + BK - 1 > q_offset + qw)) {
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.0f;
-    for (int c = 0; c < dk; c += 4) {
-      float4 qv[RQ], kv[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = ld4(qs + (ty * RQ + i) * kst + c);
-#pragma unroll
-      for (int j = 0; j < RK; ++j) kv[j] = ld4(ks + (tx + j * TX) * kst + c);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) {
-          float t = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, t);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (key >= seq_k || (causal && key > qpos + 8 * (e >> 1))) s[4 * j + e] = NEG_INF;
         }
     }
-
+    // online softmax in log2 units: the row max of the raw scores (the scale
+    // is positive) times scale * log2(e), p = exp2(s * scale * log2(e) - m)
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int row = ty * RQ + i;
-      const int qpos = q_offset + q0 + row;
-      float mx = NEG_INF;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kpos = k0 + tx + j * TX;
-        const bool valid = kpos < seq_k && (!causal || qpos >= kpos);
-        s[i][j] = valid ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.0f;
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    float corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[row * pst + tx + j * TX] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale2);
+      corr[i] = exp2f(m[i] - m_new);
       m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        acc[i][g].x *= corr;
-        acc[i][g].y *= corr;
-        acc[i][g].z *= corr;
-        acc[i][g].w *= corr;
-      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = exp2f(fmaf(s[4 * j + e], scale2, -m[e >> 1]));
+        sum[e >> 1] += s[4 * j + e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int j = 0; j < ON / 8; ++j) {
+        acc[h][4 * j] *= corr[0];
+        acc[h][4 * j + 1] *= corr[0];
+        acc[h][4 * j + 2] *= corr[1];
+        acc[h][4 * j + 3] *= corr[1];
+      }
 
-    // acc += p . v over the tile's keys, four keys per step; this thread's
-    // columns are (tx + 16g) * 4 .. + 3
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[RQ];
+    // P in bf16 as wgmma's A fragments: slice p is blocks 2p, 2p + 1 of S
+    uint32_t pa[NP][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = ld4(ps + (ty * RQ + i) * pst + kk);
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const int c = (tx + g * TX) * 4;
-        if (c >= dv) continue;
-        const float4 v0 = ld4(vs + kk * vst + c), v1 = ld4(vs + (kk + 1) * vst + c),
-                     v2 = ld4(vs + (kk + 2) * vst + c), v3 = ld4(vs + (kk + 3) * vst + c);
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-          float4& a = acc[i][g];
-          a.x = fmaf(pv[i].w, v3.x, fmaf(pv[i].z, v2.x, fmaf(pv[i].y, v1.x, fmaf(pv[i].x, v0.x, a.x))));
-          a.y = fmaf(pv[i].w, v3.y, fmaf(pv[i].z, v2.y, fmaf(pv[i].y, v1.y, fmaf(pv[i].x, v0.y, a.y))));
-          a.z = fmaf(pv[i].w, v3.z, fmaf(pv[i].z, v2.z, fmaf(pv[i].y, v1.z, fmaf(pv[i].x, v0.z, a.z))));
-          a.w = fmaf(pv[i].w, v3.w, fmaf(pv[i].z, v2.w, fmaf(pv[i].y, v1.w, fmaf(pv[i].x, v0.w, a.w))));
-        }
-      }
+    for (int p = 0; p < NP; ++p) {
+      pa[p][0] = pack_bf16(s[8 * p], s[8 * p + 1]);          // row g, keys 2t, 2t+1
+      pa[p][1] = pack_bf16(s[8 * p + 2], s[8 * p + 3]);      // row g + 8
+      pa[p][2] = pack_bf16(s[8 * p + 4], s[8 * p + 5]);      // row g, keys 8 + 2t, +1
+      pa[p][3] = pack_bf16(s[8 * p + 6], s[8 * p + 7]);      // row g + 8
+      pin(pa[p]);
     }
+
+    // O += P.V, one k-step per 16 keys (16 rows of 128 bytes of each slab)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        wgmma_rs<ON>(acc[h], pa[p], v_desc + ((stage + p * 16 * 128 + h * (ON / 64) * KV_SLAB) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
   }
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int t = q0 + ty * RQ + i;
-    if (t >= seq_q) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + g + 8 * i;
+    if (row >= seq_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    bf16* out = ob + row * o_row + 2 * t;
 #pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      const int c = (tx + g * TX) * 4;
-      if (c >= dv) continue;
-      T* out = ob + t * o_row + c;
-      store_f(out, acc[i][g].x / denom);
-      store_f(out + 1, acc[i][g].y / denom);
-      store_f(out + 2, acc[i][g].z / denom);
-      store_f(out + 3, acc[i][g].w / denom);
-    }
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int j = 0; j < ON / 8; ++j) {
+        const int c = ON * h + 8 * j;
+        if (c + 2 * t >= dv) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + c) =
+            __floats2bfloat162_rn(acc[h][4 * j + 2 * i] / denom, acc[h][4 * j + 2 * i + 1] / denom);
+      }
   }
 }
 
-template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int seq_q, int seq_k, int kv_heads, int group, int dk, int dv,
-           int causal, int q_offset, float scale, void* stream) {
-  const size_t smem = smem_floats(dk, dv) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, DMAX>,
+template <int DMAX>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int seq_q,
+           int seq_k, int kv_heads, int group, int dk, int dv, int causal, int q_offset,
+           float scale, void* stream) {
+  constexpr size_t smem = smem_bytes<DMAX>();
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(batch) * kv_heads * group,
-                  (seq_q + BQ - 1) / BQ);
-  flash_kernel<T, DMAX><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq_q, seq_k, kv_heads, group, dk, dv, causal, q_offset,
-      scale);
+  const dim3 grid(static_cast<unsigned>(batch) * kv_heads * group, (seq_q + BQ - 1) / BQ);
+  flash_wgmma_kernel<DMAX><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), seq_q, seq_k, kv_heads, group, dk, dv, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
-             int seq_q, int seq_k, int kv_heads, int group, int dk, int dv,
-             int causal, int q_offset, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int seq_q,
+             int seq_k, int kv_heads, int group, int dk, int dv, int causal, int q_offset,
+             float scale, void* stream) {
   const int d = dk > dv ? dk : dv;
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv,
-                         causal, q_offset, scale, stream);
+    return launch<64>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv, causal,
+                      q_offset, scale, stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv,
-                          causal, q_offset, scale, stream);
-  return launch<T, 256>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv,
-                        causal, q_offset, scale, stream);
+    return launch<128>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv, causal,
+                       q_offset, scale, stream);
+  return launch<256>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv, causal,
+                     q_offset, scale, stream);
 }
 
-}  // namespace
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // float32: 3xTF32 on the tensor cores (mma.sync), cp.async staging
@@ -721,8 +904,11 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
 // (f32 != 0) or the bfloat16 one.  The wrapper's smem_bytes reads it here,
 // so the layout is written once.
 extern "C" int flash_attention_smem_bytes(int dk, int dv, int f32) {
-  if (!f32) return static_cast<int>(smem_floats(dk, dv) * sizeof(float));
   const int d = dk > dv ? dk : dv;
+  if (!f32)
+    return static_cast<int>(d <= 64    ? wg::smem_bytes<64>()
+                            : d <= 128 ? wg::smem_bytes<128>()
+                                       : wg::smem_bytes<256>());
   return static_cast<int>(d <= 64    ? tc::smem_bytes<64>(dk, dv)
                           : d <= 128 ? tc::smem_bytes<128>(dk, dv)
                                      : tc::smem_bytes<256>(dk, dv));
@@ -732,7 +918,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int batch, int seq_q, int seq_k,
                                     int kv_heads, int group, int dk, int dv,
                                     int causal, int q_offset, float scale,
-                                   void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, batch, seq_q, seq_k, kv_heads, group,
-                                 dk, dv, causal, q_offset, scale, stream);
+                                    void* stream) {
+  return wg::dispatch(q, k, v, o, batch, seq_q, seq_k, kv_heads, group, dk, dv, causal,
+                      q_offset, scale, stream);
 }

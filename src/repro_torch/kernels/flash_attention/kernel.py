@@ -36,8 +36,9 @@ _SIGNATURES = {"flash_attention_f32": _ENTRY, "flash_attention_bf16": _ENTRY,
 
 def smem_bytes(dk: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of one CTA of the body that takes (dk, dv) in ``dtype``
-    (float32: the tensor-core body, bfloat16: the SIMT body), as the kernel's
-    source computes it (``flash_attention_smem_bytes``); builds the library."""
+    (float32: the 3xTF32 mma.sync body, bfloat16: the wgmma body), as the
+    kernel's source computes it (``flash_attention_smem_bytes``); builds the
+    library."""
     lib = build.library("flash_attention", _SIGNATURES)
     return lib.flash_attention_smem_bytes(dk, dv, int(dtype == torch.float32))
 
@@ -87,8 +88,9 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, T, KH, G, dv), dtype=q.dtype, device=q.device)
     if B * T * KH * G == 0:
         return out
-    # the float32 body stages rows with 16-byte cp.async: a view that starts
-    # off a 16-byte boundary is copied into a fresh (aligned) tensor
+    # both bodies stage rows with 16-byte cp.async (the bf16 one with 8-byte
+    # copies where dk or dv % 8 == 4): a view that starts off a 16-byte
+    # boundary is copied into a fresh (aligned) tensor
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
     name = DTYPES[q.dtype]

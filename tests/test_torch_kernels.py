@@ -116,7 +116,7 @@ def test_library_names_follow_their_sources():
 
 
 def test_chip_smoke_reads_the_ptxas_lines_of_the_named_kernels():
-    """chip_smoke.py prints the fp32 flash body's registers and spills from
+    """chip_smoke.py prints each flash body's registers and spills from
     build_all's -Xptxas -v output: the lines of each kernel whose mangled
     name holds the marker, under that name, and no other kernel's."""
     import importlib.util
@@ -126,13 +126,13 @@ def test_chip_smoke_reads_the_ptxas_lines_of_the_named_kernels():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    tc, simt = ("_ZN2tc17flash_tf32_kernelILi128EEEvPKfS2_S2_Pfiiiiiiiif",
-                "_ZN12_GLOBAL__N_112flash_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_iiiiiiiif")
+    tc, wg = ("_ZN2tc17flash_tf32_kernelILi128EEEvPKfS2_S2_Pfiiiiiiiif",
+              "_ZN2wg18flash_wgmma_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiiiif")
     log = "\n".join([
-        f"ptxas info    : Compiling entry function '{simt}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {simt}",
+        f"ptxas info    : Compiling entry function '{wg}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {wg}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Used 239 registers, used 1 barriers",
         f"ptxas info    : Compiling entry function '{tc}' for 'sm_90a'",
         f"ptxas info    : Function properties for {tc}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -140,6 +140,9 @@ def test_chip_smoke_reads_the_ptxas_lines_of_the_named_kernels():
     assert chip_smoke.ptxas_lines(log, "flash_tf32_kernel") == [
         f"{tc}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         f"{tc}: ptxas info    : Used 228 registers, used 1 barriers"]
+    assert chip_smoke.ptxas_lines(log, "flash_wgmma_kernel") == [
+        f"{wg}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"{wg}: ptxas info    : Used 239 registers, used 1 barriers"]
     assert chip_smoke.ptxas_lines("", "flash_tf32_kernel") == []
 
 # -- on the card: each CUDA kernel against its plain version -----------------

@@ -222,12 +222,13 @@ def test_library_names_cover_the_lm_kernels():
 # -- on the card: each CUDA kernel against its plain version -----------------------
 
 
-# the edges of the kernels' tiling: d a multiple of 4 but not of 8 (20), the
-# hubert / zamba2 head dim (80), MLA's dk != dv (192 / 128), T > S with S
-# not a multiple of the KV tile (causal and not)
+# the edges of the kernels' tiling: d a multiple of 4 but not of 8 (20 and
+# 12: the bf16 body's 8-byte copies), the hubert / zamba2 head dim (80),
+# MLA's dk != dv (192 / 128), T > S with S not a multiple of the KV tile
+# (causal and not)
 FLASH_EDGE_SHAPES = [(2, 50, 70, 20, 20, True, 0, 0), (2, 130, 130, 80, 80, True, 0, 0),
                      (2, 100, 150, 192, 128, False, 0, 0), (1, 200, 77, 64, 64, True, 0, 0),
-                     (1, 200, 77, 128, 128, False, 0, 0)]
+                     (1, 200, 77, 128, 128, False, 0, 0), (2, 90, 140, 12, 12, True, 0, 0)]
 
 
 @pytest.mark.cuda
@@ -272,30 +273,35 @@ def test_flash_kernel_gqa_vs_plain(cuda, dtype, B, T, S, KH, G, dh, q_offset):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_takes_views_off_16_bytes(cuda):
-    """The fp32 body stages rows with 16-byte cp.async: q, k, v that start
-    one float past an aligned address are copied first, not misread."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_takes_views_off_16_bytes(cuda, dtype):
+    """Both bodies stage rows with 16-byte cp.async: q, k, v that start one
+    element (4 bytes in fp32, 2 in bf16) past an aligned address are copied
+    first, not misread."""
     rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
 
     def off(shape):
         flat = rng.normal(size=int(np.prod(shape)) + 1).astype(np.float32)
-        return torch.from_numpy(flat).to(cuda)[1:].view(shape)
+        return torch.from_numpy(flat).to(cuda, dt)[1:].view(shape)
 
     q, k, v = off((1, 40, 2, 2, 32)), off((1, 50, 2, 32)), off((1, 50, 2, 32))
     assert q.data_ptr() % 16 and k.data_ptr() % 16 and v.data_ptr() % 16
     out = fa_ops.flash_attention(q, k, v, causal=True, q_offset=10)
     ref = gqa_plain(q, k, v, causal=True, q_offset=10)
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **_tol("float32"))
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,at_128", [("float32", 215_040), ("bfloat16", 118_784)])
+@pytest.mark.parametrize("dtype,at_128", [("float32", 215_040), ("bfloat16", 164_864)])
 def test_flash_smem_fits_every_head_dim_the_kernel_takes(cuda, dtype, at_128):
     """Each body's shared memory per CTA, as csrc/flash_attention.cu computes
-    it (float32: the tensor-core body's Q tile and two K/V stages, bfloat16:
-    the SIMT body's tiles), fits Hopper's 227 KB for every dk, dv the wrapper
-    accepts, multiples of 4 up to 256; at qwen3's head dim 128 it is as the
-    kernel's note states."""
+    it (float32: the 3xTF32 body's Q tile and two K/V stages; bfloat16: the
+    wgmma body's swizzled Q tile and two K/V stages, 160 KB, plus 1 KB that
+    aligns them), fits Hopper's 227 KB for every dk, dv the wrapper accepts,
+    multiples of 4 up to 256; at qwen3's head dim 128 it is as the kernel's
+    note states."""
     dt = getattr(torch, dtype)
     dims = range(4, MAX_HEAD_DIM + 1, 4)
     assert max(smem_bytes(dk, dv, dt) for dk in dims for dv in dims) <= 227 * 1024
