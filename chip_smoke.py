@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              assignments and dist² within 1e-5 relative.  accumulate_blocked
              must be bit-exact in fp32 (within 3e-2 in bf16), and
              sparse_scatter_add bit-exact on the accumulator's pairs (within
-             rtol 1e-5, atol 1e-6 where one row repeats an index).  Each is
+             rtol 1e-5, atol 1e-6 where one row repeats an index), one
+             launch per call whatever the number of rows.  Each is
              timed (median of CUDA-event timings of one call) beside its plain
              version, its bound and, where one PyTorch call computes the
              same function, that call; the short ones also by CUDA-graph
@@ -25,7 +26,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              test_kernels.py's tolerances at its shapes and at the shapes
              the LM main path gives them; flash_attention also at the edges
              of its tiling (head dims 20, 80 and 192/128, T > S, a
-             decode-shaped T = 1, the qwen3 shape at batch 1); both bodies'
+             decode-shaped T = 1, the qwen3 shape at batch 1); both flash
+             bodies', topk_compress's radix body's and sparse_scatter_add's
              -Xptxas -v lines (registers, spills) are printed; the fp32
              body's bound is the 3xTF32 tensor-core one (the fp32 pipes'
              printed beside it).  The bf16 (wgmma) body is timed at the
@@ -34,8 +36,9 @@ Phases, in order; any failure raises and the run exits non-zero:
              inputs repro's kernels take off the float32 main path
              (A_INPUTS, C_INPUTS, D_INPUTS; bf16 at the main-path shapes;
              ssd_scan at chunk 256), each held and timed beside its plain
-             version; and accumulate_blocked's host cost split into
-             the parts of its launch path (g_split, 1,000 calls each).
+             version; and accumulate_blocked's and sparse_scatter_add's
+             host cost split into the parts of their launch paths (g_split,
+             1,000 calls each; h_split, 200).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -369,9 +372,10 @@ def check_kernels(rng) -> dict:
 def check_receive(rng) -> dict:
     """accumulate_blocked and sparse_scatter_add against their plain versions
     at test_kernels.py's sweeps and at the shapes the main path gives them,
-    each timed there (accumulate_blocked also through the accumulator's
-    entry, which skips the row checks, as ``entry_ms``)."""
+    each timed there (each also through the accumulator's entry, which skips
+    the checks, as ``entry_ms``)."""
     from repro_torch.kernels.accumulate.kernel import accumulate_rows_unchecked
+    from repro_torch.kernels.sparse_update.kernel import sparse_scatter_add_unchecked
 
     results = {}
     # G: accumulate_blocked — the sweep in fp32 (bit-exact) and bf16, as the
@@ -446,9 +450,10 @@ def check_receive(rng) -> dict:
         flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
         per_shape[app] = dict(
             shape=f"idx/vals ({N_THREADS}, {idx.shape[1]}) int32/f32 into {v} "
-                  f"({N_THREADS} launches)",
+                  "(1 launch)",
             max_abs_err=float((got - ref).abs().max()),
             ms=time_ms(lambda: sparse_scatter_add(idx, vals, v), 20),
+            entry_ms=time_ms(lambda: sparse_scatter_add_unchecked(idx, vals, v), 20),
             plain_ms=time_ms(lambda: sparse_scatter_add_plain(idx, vals, v), 5),
             bound_ms=t, bound_by=by,
             library_ms=time_ms(lambda: torch.zeros(v, device=dev).index_add_(
@@ -469,8 +474,9 @@ def check_inputs(rng) -> dict:
     shape) and at K 1,024 / D 64, K 9,000 and D 60,000; F within 3e-2 at
     bf16 (the mamba2-2.7b prefill shape) and within 3e-4 at chunk 256 (two
     sub-chunks of 128); A and C also at bf16 at pagerank's V.  Each is timed
-    per call (CUDA events) beside its plain version and a bound; the float32
-    main-path rows of phase 3 are the yardstick.  Returns the timings."""
+    per call (CUDA events) beside its plain version and a bound (A past
+    1,024 lanes; B and C at every C_INPUTS entry); the float32 main-path
+    rows of phase 3 are the yardstick.  Returns the timings."""
     from repro_torch.kernels.ssd_scan.kernel import sub_chunk
 
     taken = {}
@@ -514,13 +520,12 @@ def check_inputs(rng) -> dict:
                 i, val = topk_compress(x, k_per_block=k, block_v=bv, method=m)
                 if not (torch.equal(i, pi) and torch.equal(val, pv)):
                     raise AssertionError(f"topk_compress {m} differs at {(v, k, bv, dtype)}")
-                if bv > 1024:
-                    nb = -(-v // bv)
-                    record(f"{'B' if m == 'argmax' else 'C'} {DTYPE_NAMES[dtype]} block {bv}",
-                           f"x ({v},), k_per_block {k}",
-                           lambda m=m: topk_compress(x, k_per_block=k, block_v=bv, method=m),
-                           lambda: topk_compress_plain(x, k, bv),
-                           v * x.element_size() + nb * k * (4 + x.element_size()))
+                nb = -(-v // bv)
+                record(f"{'B' if m == 'argmax' else 'C'} {DTYPE_NAMES[dtype]} block {bv} k {k}",
+                       f"x ({v},), k_per_block {k}",
+                       lambda m=m: topk_compress(x, k_per_block=k, block_v=bv, method=m),
+                       lambda: topk_compress_plain(x, k, bv),
+                       v * x.element_size() + nb * k * (4 + x.element_size()))
     nb, be, pb = block_layout(LJ_VERTICES, LJ_VERTICES // 4)
     x = rng_sparse(rng, (LJ_VERTICES,), 0.3).to(BF16)
     pi, pv = topk_compress_plain(x, pb, be)
@@ -680,6 +685,44 @@ def g_split(rng) -> dict:
     split = {name: host_us(fn) for name, fn in parts.items()}
     log(f"accumulate_blocked host split at nmf's round ({N_THREADS} x {v} f32), us per "
         "call over 1,000 calls:", json.dumps(split))
+    return split
+
+
+def h_split(rng) -> dict:
+    """sparse_scatter_add's host cost at pagerank's unfused round (4 rows of
+    1,211,904 int32/float32 pairs into 4,847,571), split into the parts of
+    its launch path, each called 200 times in a row (host µs per call; few
+    enough that the launches queued never fill the device's queue):
+    the output's allocation, the stream, the ctypes call that makes the
+    cooperative launch, and whole calls, public and through the
+    accumulator's entry, beside one index_add_ into fresh zeros.  Imports
+    what it times when it runs, as g_split does."""
+    from repro_torch.kernels.sparse_update import kernel as h_kernel
+
+    v = LJ_VERTICES
+    pairs = [blocked_topk_sparsify(rng_sparse(rng, (v,), 0.3), v // 4) for _ in range(N_THREADS)]
+    idx = torch.stack([p.idx for p in pairs])
+    vals = torch.stack([p.vals for p in pairs])
+    acc = torch.empty(v, device="cuda")
+    lib = build.library("scatter_add", h_kernel._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
+    parts = {
+        "torch.empty(v)": lambda: torch.empty(v, device="cuda"),
+        "torch.cuda.current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(0).cuda_stream,
+        "ctypes call (the cooperative launch)": lambda: lib.sparse_scatter_add_rows(
+            0, 0, idx.data_ptr(), vals.data_ptr(), N_THREADS, idx.shape[1], v,
+            acc.data_ptr(), None, stream),
+        "sparse_scatter_add": lambda: h_kernel.sparse_scatter_add(idx, vals, v),
+        "zeros + index_add_": lambda: torch.zeros(v, device="cuda").index_add_(
+            0, flat_i, flat_v)}
+    if hasattr(h_kernel, "sparse_scatter_add_unchecked"):
+        parts["sparse_scatter_add_unchecked"] = \
+            lambda: h_kernel.sparse_scatter_add_unchecked(idx, vals, v)
+    split = {name: host_us(fn, 200) for name, fn in parts.items()}
+    log(f"sparse_scatter_add host split at pagerank's unfused round ({N_THREADS} x "
+        f"{idx.shape[1]} pairs), us per call over 200 calls:", json.dumps(split))
     return split
 
 
@@ -1064,11 +1107,11 @@ def run_apps() -> dict:
                                                         "sparse_scatter_add": 0})
     (r_u, s_u), launched = run_app("pagerank sparse unfused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(False)))
-    # unfused: one compression per thread and one scatter launch per
-    # thread's pairs each round
+    # unfused: one compression per thread and one scatter launch for all
+    # the threads' pairs each round
     expect_launches("pagerank sparse unfused", launched,
                     {"topk_compress_bitonic": ITERS * N_THREADS, "fused_topk_scatter": 0,
-                     "sparse_scatter_add": ITERS * N_THREADS})
+                     "sparse_scatter_add": ITERS})
     close(r_f, r_u, "pagerank sparse fused vs unfused")
     if s_f.wire_traffic() != s_u.wire_traffic():
         raise AssertionError("pagerank: fused and unfused wire traffic differ")
@@ -1115,7 +1158,7 @@ def run_apps() -> dict:
         x, y, iters=ITERS, lr=LR_STEP, mode="sparse", k=LR_K, session=session(False)))
     expect_launches("logreg sparse unfused", launched,
                     {"topk_compress_argmax": ITERS * N_THREADS,
-                     "sparse_scatter_add": ITERS * N_THREADS})
+                     "sparse_scatter_add": ITERS})
     close(th_f, th_u, "logreg sparse fused vs unfused")
     if s_f.wire_traffic() != s_u.wire_traffic():
         raise AssertionError("logreg: fused and unfused wire traffic differ")
@@ -1297,9 +1340,12 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} sources")
-    for name, marker in (("f32", "flash_tf32_kernel"), ("bf16", "flash_wgmma_kernel")):
-        for line in ptxas_lines(logs.get("flash_attention", ""), marker):
-            log(f"flash_attention_{name} ptxas:", line)
+    for lib, label, marker in (("flash_attention", "flash_attention_f32", "flash_tf32_kernel"),
+                               ("flash_attention", "flash_attention_bf16", "flash_wgmma_kernel"),
+                               ("topk_compress", "topk_compress_bitonic", "topk_radix_kernel"),
+                               ("scatter_add", "sparse_scatter_add", "scatter_rows_kernel")):
+        for line in ptxas_lines(logs.get(lib, ""), marker):
+            log(f"{label} ptxas:", line)
 
     rng = np.random.default_rng(SEED)
     measured = check_kernels(rng)
@@ -1309,6 +1355,7 @@ def main() -> None:
     measured["flash_attention_bf16"] = check_flash_bf16(rng)
     check_inputs(rng)
     g_split(rng)
+    h_split(rng)
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.sparse_update.ops import scatter_add
+from repro_torch.kernels.sparse_update.kernel import sparse_scatter_add_unchecked
 from repro_torch.kernels.sparse_update.ref import pair_rows
 
 DEFAULT_BLOCK = 1024
@@ -188,10 +188,12 @@ def densify(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
     """Scatter-add (index, value) pairs into a dense length-n vector.
 
     ``idx``/``vals`` are 1-D, or (T, P) — one row per thread, added in row
-    order.  Float32 pairs go through
-    :func:`repro_torch.kernels.sparse_update.ops.scatter_add`: the CUDA
-    kernel on the card, one launch per row with atomic adds, its plain
-    version (one ``index_add_`` per row) on the CPU.  Within one thread's
+    order — of one shape and device, as one compression per row gives them,
+    with int32 or int64 indices.  Float32 pairs go through
+    :func:`repro_torch.kernels.sparse_update.kernel.sparse_scatter_add_unchecked`
+    (no checks): the CUDA kernel on the card, one launch per call with
+    atomic adds and a grid barrier between rows, its plain version (one
+    ``index_add_`` per row) on the CPU.  Within one thread's
     pairs the indices are unique apart from ``(0, 0.0)`` padding (adding
     +0.0 to a sum that started at +0.0 changes nothing), so the atomics
     reach the same bits as the JAX package's sequential scatter, thread 0's
@@ -199,7 +201,7 @@ def densify(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
     JAX package's scatter does (a bf16 scatter rounds after each add, where
     the kernel sums in fp32)."""
     if vals.dtype == torch.float32:
-        return scatter_add(idx, vals, out_len=n)
+        return sparse_scatter_add_unchecked(idx, vals, n)
     out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
     for i, v in zip(*pair_rows(idx, vals)):
         out.index_add_(0, i.long(), v)

@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fused_scatter", "topk_compress", "kmeans_assign", "flash_attention",
            "ssd_scan", "accumulate", "scatter_add")
-HEADERS = ("common.cuh", "bitonic.cuh", "dtype.cuh")
+HEADERS = ("common.cuh", "bitonic.cuh", "dtype.cuh", "radix_select.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

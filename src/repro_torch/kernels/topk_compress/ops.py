@@ -7,10 +7,11 @@ and exhausted slots give ``(0, 0)``; a valid zero keeps its real index.
 
 Two CUDA bodies compute it (``csrc/topk_compress.cu``, float32 or
 bfloat16, any block size), element-wise identical: ``method="argmax"`` (k
-block-wide argmax rounds) and ``method="bitonic"`` (one sort of the block,
-whatever k is).  ``method=None`` takes bitonic from :data:`BITONIC_MIN_K`
-on.  A CPU tensor takes :func:`topk_compress_plain`, which both bodies are
-held against.
+block-wide argmax rounds) and ``method="bitonic"`` (named after ``repro``'s
+body: a radix select of the block's k-th key, ``csrc/radix_select.cuh``,
+then a bitonic sort of the k selected keys alone).  ``method=None`` takes bitonic from
+:data:`BITONIC_MIN_K` on.  A CPU tensor takes :func:`topk_compress_plain`,
+which both bodies are held against.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bitonic import key_pos, key_valid, sort_desc, topk_keys
 
 # The crossover of the two bodies, carried over from the JAX package's CPU
-# interpret-mode timing.  Not yet measured on the card: chip_smoke.py times
-# both bodies, and this moves only on that evidence.
+# interpret-mode timing, so that the default picks the body repro picks.
+# chip_smoke.py sweeps both bodies over k on the card (PERF.md §6).
 BITONIC_MIN_K = 65
 METHODS = ("argmax", "bitonic")
 ARGMAX_STATIC_SMEM = 256  # the argmax body's per-warp winners (csrc/topk_compress.cu)
+SELECT_STATIC_SMEM = 4096  # bounds the bitonic body's radix::Smem (static_assert there)
 
 launches = {m: build.LaunchCounter(f"topk_compress_{m}") for m in METHODS}
 
@@ -33,13 +35,15 @@ _SIGNATURES = {"topk_compress": (build.INT, build.PTR, build.PTR, build.PTR, bui
                                  build.INT, build.INT, build.INT, build.PTR, build.PTR)}
 
 
-def work_bytes(block_v: int, method: str) -> int:
-    """One CTA's working set: the argmax body's fp32 magnitudes of the
-    block, or the bitonic body's 64-bit keys of the block padded to a power
-    of two (at least a warp)."""
+def work_bytes(block_v: int, k_per_block: int, method: str) -> int:
+    """One CTA's working set where it may outgrow shared memory: the argmax
+    body's fp32 magnitudes of the block, or the bitonic body's k selected
+    64-bit keys, padded to a power of two for the sort (while they are no
+    more than the CTA's threads, at most 1,024, they are sorted in registers
+    and take twice that, 16 KB at most)."""
     if method == "argmax":
         return 4 * block_v
-    return 8 * (1 << (max(block_v, 32) - 1).bit_length())
+    return 8 * (1 << (k_per_block - 1).bit_length())
 
 
 def topk_compress_plain(x: torch.Tensor, k_per_block: int, block_v: int):
@@ -90,8 +94,8 @@ def topk_compress(x: torch.Tensor, *, k_per_block: int, block_v: int = 1024,
     nblocks = -(-v // block_v)
     idx = torch.empty(nblocks * k_per_block, dtype=torch.int32, device=x.device)
     vals = torch.empty(nblocks * k_per_block, dtype=x.dtype, device=x.device)
-    work = build.scratch(work_bytes(block_v, method), nblocks, x.device,
-                         ARGMAX_STATIC_SMEM if method == "argmax" else 0)
+    work = build.scratch(work_bytes(block_v, k_per_block, method), nblocks, x.device,
+                         ARGMAX_STATIC_SMEM if method == "argmax" else SELECT_STATIC_SMEM)
     lib = build.library("topk_compress", _SIGNATURES)
     with torch.cuda.device(x.device):
         code = lib.topk_compress(dtype, x.data_ptr(), idx.data_ptr(), vals.data_ptr(), v,

@@ -34,7 +34,7 @@ from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes, ssd_scan, sub_chunk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
-    ARGMAX_STATIC_SMEM, topk_compress, topk_compress_plain, work_bytes)
+    ARGMAX_STATIC_SMEM, SELECT_STATIC_SMEM, topk_compress, topk_compress_plain, work_bytes)
 
 SSD_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4),       # test_kernels.py:193
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}      # the repo's bf16 tolerance
@@ -249,16 +249,18 @@ def test_dtype_code_takes_float32_and_bfloat16_only():
 
 
 def test_working_sets_past_shared_memory_take_scratch():
-    """A block's keys and fold accumulators (fused: 12 bytes a lane), keys
-    (bitonic: 8 a lane) or magnitudes (argmax: 4 an entry) stay in shared
-    memory up to 16,384 lanes, 16,384 lanes and 58,048 entries."""
+    """A block's keys and fold accumulators (fused: 12 bytes a lane), the
+    selected keys (bitonic: 8 a key, padded to a power of two) or magnitudes
+    (argmax: 4 an entry) stay in shared memory up to 16,384 lanes, 16,384
+    keys — whatever the block — and 58,048 entries."""
     assert lanes(16_384) == 16_384 and lanes(16_385) == 32_768 and lanes(7) == 8
     assert 12 * lanes(16_384) <= build.MAX_SHARED_BYTES < 12 * lanes(16_385)
-    assert work_bytes(16_384, "bitonic") <= build.MAX_SHARED_BYTES
-    assert work_bytes(16_385, "bitonic") > build.MAX_SHARED_BYTES
-    assert work_bytes(7, "bitonic") == 8 * 32
-    assert build.scratch(work_bytes(58_048, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM) is None
-    buf = build.scratch(work_bytes(58_049, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM)
+    assert work_bytes(16_384, 16_384, "bitonic") + SELECT_STATIC_SMEM <= build.MAX_SHARED_BYTES
+    assert work_bytes(65_536, 16_385, "bitonic") > build.MAX_SHARED_BYTES
+    assert work_bytes(1024, 7, "bitonic") == 8 * 8
+    assert build.scratch(work_bytes(65_536, 100, "bitonic"), 4, "cpu", SELECT_STATIC_SMEM) is None
+    assert build.scratch(work_bytes(58_048, 1, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM) is None
+    buf = build.scratch(work_bytes(58_049, 1, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM)
     assert buf.numel() == 3 * 4 * 58_049
 
 
@@ -341,8 +343,9 @@ def test_fused_topk_scatter_kernel_inputs(cuda, dtype, n, v, k, block):
                                     (200_000, 100, 65_536)])
 def test_topk_compress_kernels_inputs(cuda, dtype, v, k, bv):
     """Both bodies at bf16 and at blocks of 2,048, 16,384 and 65,536 (the
-    argmax body's magnitudes go to scratch past 58,048 entries, the bitonic
-    body's keys past 16,384 lanes): bit-exact with the plain version."""
+    argmax body's magnitudes go to scratch past 58,048 entries; the bitonic
+    body re-reads x on each pass past 16,384 lanes): bit-exact with the
+    plain version."""
     x = torch.from_numpy(_sparse(np.random.default_rng(v), (v,))).to(cuda, dtype)
     pi, pv = topk_compress_plain(x, k, min(bv, v))
     for method in ("argmax", "bitonic"):

@@ -166,18 +166,45 @@ def test_fused_topk_scatter_kernel_bitexact(cuda, n, v, k, block):
         assert torch.equal(got, fused_topk_scatter_plain(x, pb, be))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("v,k,bv", [(900, 4, 256), (2048, 16, 512), (100, 2, 64),
-                                    (1000, 200, 256), (4096, 256, 1024), (7, 3, 1024)])
-def test_topk_compress_kernels_bitexact(cuda, v, k, bv):
-    x = np.random.default_rng(7).normal(size=(v,)).astype(np.float32)
+def _topk_input(kind: str, v: int) -> np.ndarray:
+    if kind == "zeros":
+        return np.zeros(v, np.float32)
+    rng = np.random.default_rng(7)
+    if kind == "ties":          # few magnitudes, both signs, and ±0.0
+        return rng.choice(np.array([-2.0, 2.0, 1.0, -0.0, 0.0], np.float32), size=v)
+    x = rng.normal(size=(v,)).astype(np.float32)
     x[np.random.default_rng(8).random(v) < 0.5] = 0.0
-    xc = torch.from_numpy(x).to(cuda)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("v,k,bv,kind", [
+    (900, 4, 256, "sparse"), (2048, 16, 512, "sparse"), (100, 2, 64, "sparse"),
+    (1000, 200, 256, "sparse"), (4096, 256, 1024, "sparse"), (7, 3, 1024, "sparse"),
+    # the bitonic body's edges: k 256 at block 1,024 fills its 256 threads
+    # (the keys sorted in registers), k 257 does not (sorted in shared
+    # memory), k 1,025 at block 2,048, k = block with a partial last block, an
+    # all-zero block, equal magnitudes with ±0.0, and k past 16,384 keys
+    # (the selected keys in device scratch, each pass re-reading x)
+    (3000, 257, 1024, "sparse"), (5000, 1025, 2048, "sparse"),
+    (2500, 1024, 1024, "sparse"), (3000, 256, 1024, "zeros"), (3000, 300, 1024, "ties"),
+    (70_000, 20_000, 65_536, "sparse")])
+def test_topk_compress_kernels_bitexact(cuda, dtype, v, k, bv, kind):
+    """Both bodies bit-exact with the plain version (and so with each
+    other), one launch each."""
+    xc = torch.from_numpy(_topk_input(kind, v)).to(cuda, dtype)
     pi, pv = topk_compress_plain(xc, k, min(bv, v))
     for method in ("argmax", "bitonic"):
+        before = build.launch_counts()[f"topk_compress_{method}"]
         i, val = topk_compress(xc, k_per_block=k, block_v=bv, method=method)
         torch.cuda.synchronize()
+        assert build.launch_counts()[f"topk_compress_{method}"] == before + 1
+        assert val.dtype == dtype
         assert torch.equal(i, pi) and torch.equal(val, pv), method
+        # ±0.0 kept: the values' bits, not only their order
+        assert torch.equal(val.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           pv.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 @pytest.mark.cuda

@@ -231,12 +231,16 @@ def test_accumulate_kernel(cuda, dtype, n, v, bv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 70])
 @pytest.mark.parametrize("m,v,bv", SCATTER_SHAPES)
-def test_scatter_add_kernel_sweep(cuda, m, v, bv):
-    """Random indices collide inside the row: held to the stated tolerance."""
+def test_scatter_add_kernel_sweep(cuda, rows, m, v, bv):
+    """Random indices collide inside each row: held to the stated tolerance,
+    one launch per call for 1, 4 and 70 rows."""
     rng = np.random.default_rng(4)
-    idx = torch.from_numpy(rng.integers(0, v, size=(m,)).astype(np.int32)).to(cuda)
-    vals = torch.from_numpy(rng.normal(size=(m,)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, v, size=(rows, m)).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(rows, m)).astype(np.float32)).to(cuda)
+    if rows == 1:
+        idx, vals = idx[0], vals[0]
     before = build.launch_counts()["sparse_scatter_add"]
     got = sparse_scatter_add(idx, vals, v, block_v=bv)
     torch.cuda.synchronize()
@@ -245,20 +249,28 @@ def test_scatter_add_kernel_sweep(cuda, m, v, bv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v,k,rows", [(512, 32, 4), (100_000, 25_000, 4), (5000, 1200, 3)])
-def test_scatter_add_kernel_bitexact_on_pairs(cuda, v, k, rows):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("v,k,rows", [(512, 32, 4), (100_000, 25_000, 4), (5000, 1200, 3),
+                                      (1030, 600, 1), (1030, 600, 70),
+                                      (4_847_571, 1_211_892, 4)])
+def test_scatter_add_kernel_bitexact_on_pairs(cuda, dtype, index_dtype, v, k, rows):
     """The accumulator's pairs (unique indices per row apart from (0, 0.0)
-    padding), rows added in order: bit-exact, one launch per row."""
+    padding; (1030, 600) pads its last block, the last case is pagerank's
+    unfused round), rows added in order: bit-exact with either index dtype,
+    in float32 and in bfloat16 (the fp32 sum cast once, inside the launch),
+    one launch per call whatever the number of rows."""
     rng = np.random.default_rng(6)
     pairs = []
     for _ in range(rows):
         x = rng.normal(size=(v,)).astype(np.float32)
         x[rng.random(v) < 0.7] = 0.0
-        pairs.append(blocked_topk_sparsify(torch.from_numpy(x).to(cuda), k))
-    idx = torch.stack([p.idx for p in pairs])
+        pairs.append(blocked_topk_sparsify(torch.from_numpy(x).to(cuda, dtype), k))
+    idx = torch.stack([p.idx for p in pairs]).to(index_dtype)
     vals = torch.stack([p.vals for p in pairs])
     before = build.launch_counts()["sparse_scatter_add"]
     got = sparse_scatter_add(idx, vals, v)
     torch.cuda.synchronize()
-    assert build.launch_counts()["sparse_scatter_add"] == before + rows
+    assert build.launch_counts()["sparse_scatter_add"] == before + 1
+    assert got.dtype == dtype
     assert torch.equal(got, sparse_scatter_add_plain(idx, vals, v))
