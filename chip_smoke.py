@@ -26,19 +26,24 @@ Phases, in order; any failure raises and the run exits non-zero:
              test_kernels.py's tolerances at its shapes and at the shapes
              the LM main path gives them; flash_attention also at the edges
              of its tiling (head dims 20, 80 and 192/128, T > S, a
-             decode-shaped T = 1, the qwen3 shape at batch 1); both flash
-             bodies', topk_compress's radix body's and sparse_scatter_add's
-             -Xptxas -v lines (registers, spills) are printed; the fp32
-             body's bound is the 3xTF32 tensor-core one (the fp32 pipes'
-             printed beside it).  The bf16 (wgmma) body is timed at the
-             qwen3-1.7b prefill shape beside SDPA in bf16 (a row of its
-             own), its bound the flops at 989 TFLOP/s.  Then the
+             decode-shaped T = 1, the qwen3 shape at batch 1); ssd_scan
+             also off its tiles (N 12 / P 20, N 13 / P 7), over a chain of
+             64 chunks, twice in a row and replayed from a CUDA graph, each
+             bit-equal to the eager call; both flash bodies', topk_compress's
+             radix body's, sparse_scatter_add's and ssd_scan's -Xptxas -v
+             lines (registers, spills) are printed; the bounds of the fp32
+             flash body and of ssd_scan are the 3xTF32 tensor-core ones (the
+             fp32 pipes' printed beside them).  The bf16 (wgmma) body is
+             timed at the qwen3-1.7b prefill shape beside SDPA in bf16 (a
+             row of its own), its bound the flops at 989 TFLOP/s.  Then the
              inputs repro's kernels take off the float32 main path
              (A_INPUTS, C_INPUTS, D_INPUTS; bf16 at the main-path shapes;
              ssd_scan at chunk 256), each held and timed beside its plain
-             version; and accumulate_blocked's and sparse_scatter_add's
+             version; accumulate_blocked's and sparse_scatter_add's
              host cost split into the parts of their launch paths (g_split,
-             1,000 calls each; h_split, 200).
+             1,000 calls each; h_split, 200); ssd_scan at mamba2's prefill
+             shape in f32 / bf16 at chunks 128 / 256, a call and on the
+             device (f_timings).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -103,6 +108,7 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
+from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem_bytes  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.sparse_update.kernel import sparse_scatter_add  # noqa: E402
 from repro_torch.kernels.sparse_update.ref import sparse_scatter_add_plain  # noqa: E402
@@ -475,14 +481,16 @@ def check_inputs(rng) -> dict:
     bf16 (the mamba2-2.7b prefill shape) and within 3e-4 at chunk 256 (two
     sub-chunks of 128); A and C also at bf16 at pagerank's V.  Each is timed
     per call (CUDA events) beside its plain version and a bound (A past
-    1,024 lanes; B and C at every C_INPUTS entry); the float32 main-path
-    rows of phase 3 are the yardstick.  Returns the timings."""
+    1,024 lanes; B and C at every C_INPUTS entry; F 3xTF32, and its device
+    time by graph replay too); the float32 main-path rows of phase 3 are the
+    yardstick.  Returns the timings."""
     from repro_torch.kernels.ssd_scan.kernel import sub_chunk
 
     taken = {}
 
-    def record(name, shape, fn, plain, nbytes, flops=0.0, reps=10, device=False):
-        t, by = bound_ms(nbytes, flops)
+    def record(name, shape, fn, plain, nbytes, flops=0.0, reps=10, device=False,
+               flops_per_s=FP32_FLOPS_PER_S):
+        t, by = bound_ms(nbytes, flops, flops_per_s)
         taken[name] = dict(shape=shape, ms=time_ms(fn, reps), plain_ms=time_ms(plain, 3),
                            bound_ms=t, bound_by=by)
         if device:
@@ -572,14 +580,13 @@ def check_inputs(rng) -> dict:
         ref = ssd_scan_plain(xq, a, bq, cq, q)[0]
         torch.testing.assert_close(y.float(), ref.float(),
                                    **(SSD_TOL if dtype == torch.float32 else BF16_TOL))
-        pairs = q * (q + 1) // 2
-        flops = (2.0 * pairs * (n + p) + 4.0 * q * n * p) * (t // q) * b * h
         record(f"F {DTYPE_NAMES[dtype]} chunk {q} (walked as {sub_chunk(q, p, n)})",
                f"xbar ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {g}, {n})",
                lambda: ssd_scan(xq, a, bq, cq, chunk=q),
                lambda: ssd_scan_plain(xq, a, bq, cq, q),
                xq.element_size() * (2 * xq.numel() + bq.numel() + cq.numel()) + 4 * a.numel(),
-               flops, reps=5)
+               3 * ssd_flops(b, t, h, p, n, sub_chunk(q, p, n)), reps=5, device=True,
+               flops_per_s=TF32_FLOPS_PER_S)
     log("newly taken inputs, ms per call:", json.dumps(taken))
     return taken
 
@@ -909,30 +916,85 @@ def ssd_inputs(rng, b, t, h, p, g, n):
         cuda_normal(rng, (b, t, g, n), 0.3)
 
 
+def ssd_flops(b, t, h, p, n, q) -> float:
+    """Per chunk and head: the scores and their product with xbar over the
+    causal (row, key) pairs, the carried-state term and the state update."""
+    pairs = q * (q + 1) // 2
+    return (2.0 * pairs * (n + p) + 4.0 * q * n * p) * (t // q) * b * h
+
+
 def check_ssd(rng) -> dict:
     """ssd_scan against its plain version (the chunked algorithm):
-    test_kernels.py's shapes at chunk 8/16/32, then the mamba2-2.7b prefill
-    shape (b 4, T 2048, H 80, P 64, G 1, N 128, chunk 128), timed there."""
+    test_kernels.py's shapes at chunk 8/16/32, the edges of the kernel's
+    tiles (N 12 / P 20 and N 13 / P 7 with H/G 2, a chain of 64 chunks of 8),
+    two calls in a row and a CUDA-graph replay bit-equal to an eager call,
+    then the mamba2-2.7b prefill shape (b 4, T 2048, H 80, P 64, G 1, N 128,
+    chunk 128), timed there per call and by graph replay.  Its bound is the
+    3xTF32 tensor-core one (the fp32 pipes' printed beside it)."""
     for chunk in (8, 16, 32):
         xbar, a, bm, cm = ssd_inputs(rng, 2, 64, 4, 8, 2, 16)
         torch.testing.assert_close(ssd_scan(xbar, a, bm, cm, chunk=chunk),
                                    ssd_scan_plain(xbar, a, bm, cm, chunk)[0], **SSD_TOL)
+    for b, t, h, p, g, n, q in [(2, 256, 4, 20, 2, 12, 16), (2, 256, 4, 7, 2, 13, 32),
+                                (2, 512, 4, 8, 2, 16, 8)]:
+        xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
+        torch.testing.assert_close(ssd_scan(xbar, a, bm, cm, chunk=q),
+                                   ssd_scan_plain(xbar, a, bm, cm, q)[0], **SSD_TOL,
+                                   msg=lambda m: f"ssd_scan at {(b, t, h, p, g, n, q)}: {m}")
     b, t, h, p, g, n, q = LM_BATCH, LM_PREFILL, 80, 64, 1, 128, 128
     xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
     y = ssd_scan(xbar, a, bm, cm, chunk=q)
     ref = ssd_scan_plain(xbar, a, bm, cm, q)[0]
     torch.testing.assert_close(y, ref, **SSD_TOL)
-    # per chunk and head: the scores and their product with xbar over the
-    # causal (row, key) pairs, the carried-state term and the state update
-    pairs = q * (q + 1) // 2
-    flops = (2.0 * pairs * (n + p) + 4.0 * q * n * p) * (t // q) * b * h
-    tb, by = bound_ms(4 * (2 * xbar.numel() + a.numel() + bm.numel() + cm.numel()), flops)
+    if not torch.equal(ssd_scan(xbar, a, bm, cm, chunk=q), y):
+        raise AssertionError("ssd_scan: two calls in a row differ")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ssd_scan(xbar, a, bm, cm, chunk=q)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, y):
+            raise AssertionError("ssd_scan: a CUDA-graph replay differs from the eager call")
+    del graph, replayed
+    flops = ssd_flops(b, t, h, p, n, q)
+    nbytes = 4 * (2 * xbar.numel() + a.numel() + bm.numel() + cm.numel())
+    # each product is three TF32 products on the tensor cores (3xTF32): the
+    # bound recorded; the fp32 pipes' is printed beside it
+    tb, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    fp32_tb, _ = bound_ms(nbytes, flops)
+    log(f"ssd_scan bounds at the mamba2 prefill shape: {tb:.4f} ms ({by}; 3xTF32: 3 x "
+        f"{flops / 1e9:.1f} GFLOP at 495 TFLOP/s), {fp32_tb:.4f} ms (the flops on the fp32 "
+        f"pipes at 67 TFLOP/s), bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB); shared memory per CTA {ssd_smem_bytes(q, p, n)} bytes")
     return dict(
         shape=f"xbar ({b}, {t}, {h}, {p}) f32, B/C ({b}, {t}, {g}, {n}), chunk {q}",
         max_abs_err=float((y - ref).abs().max()),
         ms=time_ms(lambda: ssd_scan(xbar, a, bm, cm, chunk=q), 20),
+        device_ms=graph_ms(lambda: ssd_scan(xbar, a, bm, cm, chunk=q), 20),
         plain_ms=time_ms(lambda: ssd_scan_plain(xbar, a, bm, cm, q), 5),
-        bound_ms=tb, bound_by=by, library_ms=None)
+        bound_ms=tb, bound_by=by, fp32_bound_ms=fp32_tb, library_ms=None)
+
+
+def f_timings(rng) -> dict:
+    """ssd_scan at the mamba2-2.7b prefill shape in float32 and bfloat16 at
+    chunks 128 and 256: ms a call (CUDA events, median of 20) and the device
+    time by CUDA-graph replay (20 replays).  Imports what it times when it
+    runs, as g_split does, so that a copy of this script beside an older
+    package times that package's kernel (parent, change, change, parent)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan as scan
+
+    b, t, h, p, g, n = LM_BATCH, LM_PREFILL, 80, 64, 1, 128
+    xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
+    out = {}
+    for dtype, q in ((torch.float32, 128), (BF16, 128), (torch.float32, 256), (BF16, 256)):
+        xq, bq, cq = (z.to(dtype) for z in (xbar, bm, cm))
+        out[f"{DTYPE_NAMES[dtype]} chunk {q}"] = dict(
+            ms=time_ms(lambda: scan(xq, a, bq, cq, chunk=q), 20),
+            device_ms=graph_ms(lambda: scan(xq, a, bq, cq, chunk=q), 20))
+    log(f"ssd_scan at the mamba2 prefill shape, ms a call and on the device: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1343,7 +1405,8 @@ def main() -> None:
     for lib, label, marker in (("flash_attention", "flash_attention_f32", "flash_tf32_kernel"),
                                ("flash_attention", "flash_attention_bf16", "flash_wgmma_kernel"),
                                ("topk_compress", "topk_compress_bitonic", "topk_radix_kernel"),
-                               ("scatter_add", "sparse_scatter_add", "scatter_rows_kernel")):
+                               ("scatter_add", "sparse_scatter_add", "scatter_rows_kernel"),
+                               ("ssd_scan", "ssd_scan", "ssd_chunk_kernel")):
         for line in ptxas_lines(logs.get(lib, ""), marker):
             log(f"{label} ptxas:", line)
 
@@ -1356,6 +1419,7 @@ def main() -> None:
     check_inputs(rng)
     g_split(rng)
     h_split(rng)
+    f_timings(rng)
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "

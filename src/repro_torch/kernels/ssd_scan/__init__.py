@@ -1,1 +1,2 @@
-"""Mamba2 SSD scan (CUDA): chunks in order, the state resident on chip."""
+"""Mamba2 SSD scan (CUDA): chunks in parallel on the tensor cores, the state
+passed from chunk to chunk through device scratch."""

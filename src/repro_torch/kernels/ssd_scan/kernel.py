@@ -1,16 +1,21 @@
 """The SSD scan kernel's wrapper (``csrc/ssd_scan.cu``).
 
-Port of :mod:`repro.kernels.ssd_scan.kernel`.  One launch walks, for every
-(batch, head), the chunks of xbar (b, T, H, P), log-decay a (b, T, H) and
-B/C (b, T, G, N) in order and writes y (b, T, H, P); head h reads group
-h // (H // G) of B/C in place.  :func:`ssd_scan_bh` is the TPU kernel's
-(BH, T, ·) form, the same launch with H = G = 1.
+Port of :mod:`repro.kernels.ssd_scan.kernel`.  One launch takes xbar (b, T,
+H, P), log-decay a (b, T, H) and B/C (b, T, G, N) and writes y (b, T, H, P);
+head h reads group h // (H // G) of B/C in place.  Every (batch, head,
+chunk) is a work item of its own; the fp32 state passes from one chunk to
+the next through a device scratch of two slots per (batch, head), and a
+ticket counter with one count per (batch, head) orders the hand-off.  The
+wrapper allocates both and zeroes the counter and the counts on every call
+(so a CUDA graph that replays the call starts from zero too).
+:func:`ssd_scan_bh` is the TPU kernel's (BH, T, ·) form, the same launch
+with H = G = 1.
 
 xbar, B and C are float32 or bfloat16 (one dtype; a is float32, as
 ``ops.ssd`` makes it); y comes back in xbar's dtype, the state stays fp32.
-Where one chunk does not fit a CTA's shared memory, the kernel runs it as
-consecutive sub-chunks (:func:`sub_chunk`) with the state carried between
-them: the same recurrence.
+Where one chunk's tiles do not fit a CTA's shared memory, the kernel runs it
+as consecutive sub-chunks (:func:`sub_chunk`), each an item of the chain:
+the same recurrence.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the chunked
 algorithm); a CUDA tensor launches the kernel or raises.
@@ -23,21 +28,26 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import check_chunks, ssd_scan_plain
 
-STRIP = 32                     # score rows per strip (csrc/ssd_scan.cu)
-
 launches = build.LaunchCounter("ssd_scan")
 
 _SIGNATURES = {"ssd_scan": (build.INT, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
                             build.INT, build.INT, build.INT, build.INT, build.INT,
-                            build.INT, build.INT, build.PTR)}
+                            build.INT, build.INT, build.PTR, build.PTR, build.PTR),
+               "ssd_scan_smem_bytes": (build.INT, build.INT, build.INT)}
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def smem_bytes(chunk: int, P: int, N: int) -> int:
-    """Shared memory of one CTA (csrc/ssd_scan.cu: a chunk's xbar, B
-    transposed (rows padded by one float) and C, the state, one strip of
-    scores, and cum with its two exponentials)."""
-    return 4 * (chunk * P + N * (chunk + 1) + chunk * N + N * P + STRIP * chunk
-                + 3 * chunk)
+    """Shared memory of one CTA (csrc/ssd_scan.cu, smem_floats): a chunk's
+    xbar, B and C with rows to a multiple of 16 and N, P to multiples of 32,
+    the previous state, four warps' partial sums of 16 x 64 y, cum as two
+    floats with its two exponentials, and 32 floats for the scan's fp64 warp
+    sums and the ticket."""
+    q, n, p = _round_up(chunk, 16), _round_up(N, 32), _round_up(P, 32)
+    return 4 * (q * p + 2 * q * n + n * p + 4 * 16 * 64 + 4 * q + 32)
 
 
 def sub_chunk(chunk: int, P: int, N: int) -> int:
@@ -46,7 +56,7 @@ def sub_chunk(chunk: int, P: int, N: int) -> int:
     for q in range(chunk, 0, -1):
         if chunk % q == 0 and smem_bytes(q, P, N) <= build.MAX_SHARED_BYTES:
             return q
-    raise ValueError(f"the ssd_scan kernel keeps the (N, P) state in shared memory; "
+    raise ValueError(f"the ssd_scan kernel keeps a chunk and the (N, P) state in shared memory; "
                      f"N={N}, P={P} leave no room for a chunk")
 
 
@@ -77,11 +87,16 @@ def ssd_scan(xbar: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tens
     if y.numel() == 0:
         return y
     xbar, a, B, C = xbar.contiguous(), a.contiguous(), B.contiguous(), C.contiguous()
+    # the ticket, then each (batch, head)'s count of published states: zero
+    # on every call; two state slots per (batch, head), N and P to 32
+    sync = torch.zeros(1 + b * H, dtype=torch.int32, device=xbar.device)
+    states = torch.empty(b * H * 2 * _round_up(N, 32) * _round_up(P, 32) if T > q else 1,
+                         dtype=torch.float32, device=xbar.device)
     lib = build.library("ssd_scan", _SIGNATURES)
     with torch.cuda.device(xbar.device):
         code = lib.ssd_scan(dtype, xbar.data_ptr(), a.data_ptr(), B.data_ptr(),
                             C.data_ptr(), y.data_ptr(), b, T, H, G, P, N, q,
-                            build.stream_of(xbar))
+                            states.data_ptr(), sync.data_ptr(), build.stream_of(xbar))
     build.check(lib, "ssd_scan", code)
     launches.add()
     return y

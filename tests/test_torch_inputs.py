@@ -208,10 +208,10 @@ def test_ssd_scan_bf16_vs_repro_interpret():
 
 
 def test_ssd_scan_chunk256_vs_repro_interpret():
-    """Chunk 256 at mamba2's P 64, N 128 needs 387 KB of shared memory: the
-    kernel walks it as two sub-chunks of 128 with the state carried between
-    them.  The plain version at chunk 256 and at that sub-chunk both agree
-    with repro's kernel at chunk 256."""
+    """Chunk 256 at mamba2's P 64, N 128 needs 371 KB of shared memory: the
+    kernel walks it as two sub-chunks of 128, each an item of the chain.
+    The plain version at chunk 256 and at that sub-chunk both agree with
+    repro's kernel at chunk 256."""
     from repro.kernels.ssd_scan.kernel import ssd_scan_bh as j_scan
     import jax.numpy as jnp
 
@@ -390,10 +390,14 @@ def test_kmeans_assign_kernel_inputs(cuda, dtype, n, d, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,chunk,H,G,P,N", [
     (torch.bfloat16, 8, 4, 2, 8, 16), (torch.bfloat16, 128, 3, 1, 64, 128),
-    (torch.float32, 256, 3, 1, 64, 128), (torch.bfloat16, 256, 3, 1, 64, 128)])
+    (torch.float32, 256, 3, 1, 64, 128), (torch.bfloat16, 256, 3, 1, 64, 128),
+    (torch.bfloat16, 16, 4, 2, 20, 12), (torch.bfloat16, 32, 4, 2, 7, 13),
+    (torch.float32, 8, 2, 1, 20, 12)])
 def test_ssd_kernel_inputs(cuda, dtype, chunk, H, G, P, N):
     """bf16 xbar/B/C within 3e-2, chunk 256 (two sub-chunks of 128) within
-    3e-4 in fp32, of the plain version at the same chunk."""
+    3e-4 in fp32, of the plain version at the same chunk; N and P off the
+    tiles (12 / 20: 16-byte rows, 13 / 7: element by element), chunk 8 over
+    T 512 (a chain of 64 chunks)."""
     rng = np.random.default_rng(chunk)
     t = 512
     xbar = torch.from_numpy((rng.normal(size=(2, t, H, P)) * 0.5).astype(np.float32))

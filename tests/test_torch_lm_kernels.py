@@ -310,7 +310,9 @@ def test_flash_smem_fits_every_head_dim_the_kernel_takes(cuda, dtype, at_128):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk,H,G,P,N", [(8, 4, 2, 8, 16), (16, 4, 2, 8, 16),
-                                           (32, 4, 2, 8, 16), (128, 3, 1, 64, 128)])
+                                           (32, 4, 2, 8, 16), (128, 3, 1, 64, 128),
+                                           (16, 4, 2, 20, 12), (32, 4, 2, 7, 13),
+                                           (64, 2, 1, 96, 40)])
 def test_ssd_kernel_vs_plain(cuda, chunk, H, G, P, N):
     xs, dt, A_log, B, C = (torch.from_numpy(t).to(cuda)
                            for t in _ssd_inputs(T=256, H=H, P=P, G=G, N=N))
@@ -322,3 +324,91 @@ def test_ssd_kernel_vs_plain(cuda, chunk, H, G, P, N):
     assert build.launch_counts()["ssd_scan"] == before + 1
     ref, _ = ssd_scan_plain(xbar, a, B, C, chunk)
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=3e-4, atol=3e-4)
+
+
+def _ssd_cuda(cuda, T, H, P, G, N, seed=6):
+    xs, dt, A_log, B, C = (torch.from_numpy(t).to(cuda)
+                           for t in _ssd_inputs(T=T, H=H, P=P, G=G, N=N, seed=seed))
+    return xs * dt[..., None], (dt * -torch.exp(A_log)).float(), B, C
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_long_chain(cuda):
+    """Chunk 8 over T 512: 64 chunks a head, each an item that waits for its
+    predecessor's state, on 8 (batch, head) chains."""
+    xbar, a, B, C = _ssd_cuda(cuda, 512, 4, 8, 2, 16)
+    before = build.launch_counts()["ssd_scan"]
+    y = ssd_scan(xbar, a, B, C, chunk=8)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ssd_scan"] == before + 1
+    np.testing.assert_allclose(y.cpu().numpy(), ssd_scan_plain(xbar, a, B, C, 8)[0].cpu().numpy(),
+                               rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_calls_back_to_back(cuda):
+    """Two calls in a row on the same stream, each zeroing its ticket and
+    counts: the same bits (an item's result does not depend on which CTA
+    took it or when), one launch each."""
+    xbar, a, B, C = _ssd_cuda(cuda, 256, 4, 8, 2, 16)
+    before = build.launch_counts()["ssd_scan"]
+    first = ssd_scan(xbar, a, B, C, chunk=16)
+    second = ssd_scan(xbar, a, B, C, chunk=16)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ssd_scan"] == before + 2
+    assert torch.equal(first, second)
+    np.testing.assert_allclose(first.cpu().numpy(),
+                               ssd_scan_plain(xbar, a, B, C, 16)[0].cpu().numpy(),
+                               rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph (the counts' memset with it) and
+    replayed twice: each replay equals an eager call bit for bit."""
+    xbar, a, B, C = _ssd_cuda(cuda, 256, 4, 8, 2, 16)
+    eager = ssd_scan(xbar, a, B, C, chunk=8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan(xbar, a, B, C, chunk=8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = build.launch_counts()["ssd_scan"]
+    with torch.cuda.graph(graph):
+        out = ssd_scan(xbar, a, B, C, chunk=8)
+    assert build.launch_counts()["ssd_scan"] == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,chunk,P,N", [(1024, 512, 16, 16), (256, 64, 128, 128)])
+def test_ssd_kernel_tile_paths(cuda, T, chunk, P, N):
+    """The kernel's other paths: a chunk of 512 (a scan in two blocks of
+    256, 32 m-tiles a warp at a time, no warp pairs) and N = P = 128 (16
+    state tiles, 8 of them formed after the wait; y in two passes of 64
+    columns)."""
+    from repro_torch.kernels.ssd_scan.kernel import sub_chunk
+
+    assert sub_chunk(chunk, P, N) == chunk
+    xbar, a, B, C = _ssd_cuda(cuda, T, 2, P, 1, N)
+    y = ssd_scan(xbar, a, B, C, chunk=chunk)
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               ssd_scan_plain(xbar, a, B, C, chunk)[0].cpu().numpy(),
+                               rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_smem_bytes_match_the_kernel(cuda):
+    """The wrapper's smem_bytes (which picks the sub-chunk) is the kernel's
+    smem_floats, at the mamba2 shape and off the tiles."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    lib = build.library("ssd_scan", ssd_kernel._SIGNATURES)
+    for q, p, n in [(128, 64, 128), (8, 8, 16), (100, 20, 12), (256, 7, 13), (64, 96, 40)]:
+        assert lib.ssd_scan_smem_bytes(q, p, n) == ssd_kernel.smem_bytes(q, p, n)
+    assert ssd_kernel.smem_bytes(128, 64, 128) == 215_168
