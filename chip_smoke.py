@@ -30,8 +30,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              also off its tiles (N 12 / P 20, N 13 / P 7), over a chain of
              64 chunks, twice in a row and replayed from a CUDA graph, each
              bit-equal to the eager call; both flash bodies', topk_compress's
-             radix body's, sparse_scatter_add's and ssd_scan's -Xptxas -v
-             lines (registers, spills) are printed; the bounds of the fp32
+             radix body's, fused_topk_scatter's, sparse_scatter_add's and
+             ssd_scan's -Xptxas -v lines (registers, spills) are printed; the bounds of the fp32
              flash body and of ssd_scan are the 3xTF32 tensor-core ones (the
              fp32 pipes' printed beside them).  The bf16 (wgmma) body is
              timed at the qwen3-1.7b prefill shape beside SDPA in bf16 (a
@@ -43,7 +43,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              host cost split into the parts of their launch paths (g_split,
              1,000 calls each; h_split, 200); ssd_scan at mamba2's prefill
              shape in f32 / bf16 at chunks 128 / 256, a call and on the
-             device (f_timings).
+             device (f_timings); fused_topk_scatter likewise at pagerank's
+             and logreg's shapes in f32 / bf16 (a_timings).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -182,11 +183,13 @@ SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)                      # the repo's bf16 tolerance
 # inputs the JAX package's kernels take off the float32 main path
 # (tests/test_torch_inputs.py's cuda shapes): A (N, V, k, block) and
-# B/C (V, k, block) at blocks past 1,024 lanes, in shared memory (2,048,
-# 16,384) and in device scratch (65,536); D (N, D, K): K 1,024 at D 64 (centers
-# in tiles), K 9,000, D 60,000 (no center row fits shared memory; its points
-# integer-valued, so that sums of 60,000 products are exact in fp32 in any
-# order and kernel and plain agree exactly)
+# B/C (V, k, block) at blocks past 1,024 lanes: A keeps its values in
+# registers to 2,048 lanes and reads x again on each pass past that; C
+# keeps them in registers to 16,384 and B its magnitudes in shared memory;
+# at 65,536 C reads x again and B works in device scratch; D (N, D, K): K
+# 1,024 at D 64 (centers in tiles), K 9,000, D 60,000 (no center row fits
+# shared memory; its points integer-valued, so that sums of 60,000 products
+# are exact in fp32 in any order and kernel and plain agree exactly)
 A_INPUTS = [(4, 16384, 512, 1024), (3, 900, 900, 256), (4, 30_000, 3000, 2048),
             (4, 40_000, 4000, 16_384), (2, 150_000, 9000, 65_536),
             (3, 70_000, 70_000, 65_536)]
@@ -997,6 +1000,28 @@ def f_timings(rng) -> dict:
     return out
 
 
+def a_timings(rng) -> dict:
+    """fused_topk_scatter at pagerank's (x (4, 4,847,571), block 1,024,
+    per_block 256) and logreg's (x (4, 512), one block, per_block 32) fused
+    shapes in float32 and bfloat16 at density 0.3: ms a call (CUDA events,
+    median of 20) and the device time by CUDA-graph replay (20 replays).
+    Imports what it times when it runs, as f_timings does, so that a copy of
+    this script beside an older package times that package's kernel."""
+    from repro_torch.kernels.accumulate.fused_scatter import fused_topk_scatter as fused
+
+    out = {}
+    for app, v, k in (("pagerank", LJ_VERTICES, LJ_VERTICES // 4), ("logreg", LR_FEATURES, LR_K)):
+        _, be, pb = block_layout(v, k)
+        x32 = rng_sparse(rng, (N_THREADS, v), 0.3)
+        for dtype in (torch.float32, BF16):
+            x = x32.to(dtype)
+            out[f"{app} {DTYPE_NAMES[dtype]}"] = dict(
+                ms=time_ms(lambda: fused(x, per_block=pb, block_eff=be), 20),
+                device_ms=graph_ms(lambda: fused(x, per_block=pb, block_eff=be), 20))
+    log(f"fused_topk_scatter at the fused shapes, ms a call and on the device: {json.dumps(out)}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the apps through the host Session
 # ---------------------------------------------------------------------------
@@ -1405,6 +1430,7 @@ def main() -> None:
     for lib, label, marker in (("flash_attention", "flash_attention_f32", "flash_tf32_kernel"),
                                ("flash_attention", "flash_attention_bf16", "flash_wgmma_kernel"),
                                ("topk_compress", "topk_compress_bitonic", "topk_radix_kernel"),
+                               ("fused_scatter", "fused_topk_scatter", "fused_radix_kernel"),
                                ("scatter_add", "sparse_scatter_add", "scatter_rows_kernel"),
                                ("ssd_scan", "ssd_scan", "ssd_chunk_kernel")):
         for line in ptxas_lines(logs.get(lib, ""), marker):
@@ -1420,6 +1446,7 @@ def main() -> None:
     g_split(rng)
     h_split(rng)
     f_timings(rng)
+    a_timings(rng)
     for name, m in measured.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "

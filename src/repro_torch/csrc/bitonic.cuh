@@ -1,7 +1,9 @@
 // Bitonic sorting network over packed 64-bit top-k keys.
 //
 // Replaces: src/repro/kernels/bitonic.py (bitonic_sort_desc / _compare_exchange),
-// the network inside fused_topk_scatter and topk_compress's bitonic body.
+// the network inside repro's fused_topk_scatter and topk_compress's bitonic
+// body.  In the port the packed key serves both kernels' radix selects
+// (radix_select.cuh); the network sorts only topk_compress's selected keys.
 //
 // The JAX network sorts (magnitude, index) pairs by magnitude descending, ties
 // by index ascending, with -1 marking invalid lanes (past the vector's end) and
@@ -26,10 +28,12 @@
 
 #include <cstdint>
 
+// The high half of a valid lane's packed key.
+__device__ __forceinline__ unsigned key_hi(float x) { return __float_as_uint(fabsf(x)) + 1u; }
+
 __device__ __forceinline__ unsigned long long topk_key(float x, bool valid,
                                                        unsigned local_pos) {
-  unsigned long long hi =
-      valid ? static_cast<unsigned long long>(__float_as_uint(fabsf(x)) + 1u) : 0ull;
+  unsigned long long hi = valid ? static_cast<unsigned long long>(key_hi(x)) : 0ull;
   return (hi << 32) | static_cast<unsigned long long>(0xFFFFFFFFu - local_pos);
 }
 

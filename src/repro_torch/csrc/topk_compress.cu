@@ -121,27 +121,14 @@ __global__ void topk_argmax_kernel(const T* __restrict__ x, int* __restrict__ id
 
 using u64 = unsigned long long;
 
-static_assert(sizeof(radix::Smem) <= 4096, "SELECT_STATIC_SMEM in ops.py bounds it");
-
-// The high half of a lane's packed key (bitonic.cuh's topk_key).
-__device__ __forceinline__ unsigned key_hi(float f) { return __float_as_uint(fabsf(f)) + 1u; }
-
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  f[0] = q.x, f[1] = q.y, f[2] = q.z, f[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  alignas(8) __nv_bfloat16 b[4];
-  *reinterpret_cast<uint2*>(b) = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = __bfloat162float(b[j]);
-}
+static_assert(sizeof(radix::Rows<1>) <= 4096, "SELECT_STATIC_SMEM in ops.py bounds it");
 
 // A thread's C lanes of the block, [first, first + C), their hi in registers.
 // Lanes past the vector (>= nvalid) hold hi 0; lanes past the block (j >= own)
 // are inactive.  vec: xb is aligned for load4 (then so is every lane group).
 template <typename T, int C>
 struct RegLanes {
+  static constexpr bool kZerosApart = false;  // radix::select_rows counts a lane an atomic
   unsigned hi[C];
   int first, own;
 
@@ -169,7 +156,7 @@ struct RegLanes {
   }
 
   template <class F>
-  __device__ __forceinline__ void each(F&& f) const {
+  __device__ __forceinline__ void each_row(int, F&& f) const {
 #pragma unroll
     for (int j = 0; j < C; ++j) f(first + j, hi[j], j < own);
   }
@@ -179,11 +166,12 @@ struct RegLanes {
 // each pass reading them again from x (L2 holds the block).
 template <typename T>
 struct GlobalLanes {
+  static constexpr bool kZerosApart = false;  // radix::select_rows counts a lane an atomic
   const T* xb;
   int nvalid, first, own, n;
 
   template <class F>
-  __device__ __forceinline__ void each(F&& f) const {
+  __device__ __forceinline__ void each_row(int, F&& f) const {
     for (int j = 0; j < n; ++j) {
       const int p = first + j;
       f(p, j < own && p < nvalid ? key_hi(to_f(xb[p])) : 0u, j < own);
@@ -227,16 +215,17 @@ __device__ __forceinline__ u64 sort_in_registers(u64 key, int kp, u64* buf) {
 template <typename T, class Lanes>
 __device__ __forceinline__ void topk_select(const Lanes& lanes, const T* xb, long long base,
                                             int* idx_out, T* val_out, int k, int kp,
-                                            u64* keys, radix::Smem& sm) {
-  const radix::Cut cut = radix::select(lanes, static_cast<unsigned>(k), sm);
+                                            u64* keys, radix::Rows<1>& sm) {
+  radix::select_rows(lanes, 1, static_cast<unsigned>(k), sm);
+  const radix::Cut cut = sm.cut[0];
   unsigned gt = 0, eq = 0;
-  lanes.each([&](int, unsigned hi, bool active) {
+  lanes.each_row(0, [&](int, unsigned hi, bool active) {
     gt += active && (hi & cut.mask) > cut.prefix;
     eq += active && (hi & cut.mask) == cut.prefix;
   });
   const u64 before = radix::exclusive_scan(gt | static_cast<u64>(eq) << 32, sm);
   unsigned g = static_cast<unsigned>(before), e = static_cast<unsigned>(before >> 32);
-  lanes.each([&](int pos, unsigned hi, bool active) {
+  lanes.each_row(0, [&](int pos, unsigned hi, bool active) {
     const unsigned h = hi & cut.mask;
     const u64 key = static_cast<u64>(hi) << 32 | (0xFFFFFFFFu - static_cast<unsigned>(pos));
     if (active && h > cut.prefix) {
@@ -275,7 +264,7 @@ template <typename T, int C, bool SCRATCH>
 __global__ void __launch_bounds__(C == 0 || C == 16 ? 1024 : 256)
 topk_radix_kernel(const T* __restrict__ x, int* __restrict__ idx_out, T* __restrict__ val_out,
                   long long v, int block_v, int k, int kp, int lpt, u64* scratch) {
-  __shared__ radix::Smem sm;
+  __shared__ radix::Rows<1> sm;
   extern __shared__ u64 key_smem[];
   u64* keys = SCRATCH ? scratch + static_cast<long long>(blockIdx.x) * kp : key_smem;
   const long long base = static_cast<long long>(blockIdx.x) * block_v;
@@ -382,7 +371,7 @@ static int dispatch(const void* x, int* idx_out, void* val_out, long long v, int
 // dtype: kF32 or kBF16.  scratch: null while the working set fits a CTA's
 // shared memory — argmax: the block's magnitudes, 4 * block_v bytes (plus 256
 // static); bitonic: the k selected keys, 8 * next_pow2(k) bytes (plus
-// sizeof(radix::Smem) static) — else nblocks times that.
+// sizeof(radix::Rows<1>) static) — else nblocks times that.
 extern "C" int topk_compress(int dtype, const void* x, int* idx_out, void* val_out,
                              long long v, int block_v, int k, int bitonic, void* scratch,
                              void* stream) {

@@ -9,8 +9,9 @@ of scatter-adding the threads' pairs in thread order, so the result is
 bit-exact with the compress→densify→add path.
 
 On the card one CUDA launch does it (``csrc/fused_scatter.cu``, float32 or
-bfloat16, any block size); a CPU tensor takes :func:`fused_topk_scatter_plain`,
-which the kernel is held against.
+bfloat16, any block size): each row's threshold by a radix select, the fold
+in registers, no scratch.  A CPU tensor takes
+:func:`fused_topk_scatter_plain`, which the kernel is held against.
 """
 
 from __future__ import annotations
@@ -23,13 +24,7 @@ from repro_torch.kernels.bitonic import sort_desc, topk_keys
 launches = build.LaunchCounter("fused_topk_scatter")
 
 _SIGNATURES = {"fused_topk_scatter": (build.INT, build.PTR, build.PTR, build.INT, build.LONG,
-                                      build.INT, build.INT, build.PTR, build.PTR)}
-
-
-def lanes(block_eff: int) -> int:
-    """The lanes of one block's sort: ``block_eff`` padded to a power of two.
-    Their keys and fold accumulators take 12 bytes each."""
-    return 1 << (block_eff - 1).bit_length()
+                                      build.INT, build.INT, build.PTR)}
 
 
 def fused_topk_scatter_plain(x: torch.Tensor, per_block: int,
@@ -72,18 +67,21 @@ def fused_topk_scatter(x: torch.Tensor, *, per_block: int,
     if x.device.type != "cuda":
         raise ValueError(f"fused_topk_scatter runs on cpu or cuda, not {x.device}")
     dtype = build.dtype_code("fused_topk_scatter", x)
+    index = x.get_device()
+    if index != torch.cuda.current_device():   # switch devices only where needed
+        with torch.cuda.device(index):
+            return fused_topk_scatter(x, per_block=per_block, block_eff=block_eff)
     n, v = x.shape
     block_eff = min(block_eff, v)
     x = x.contiguous()
     out = torch.empty(v, dtype=x.dtype, device=x.device)
     if v == 0:
         return out
-    work = build.scratch(12 * lanes(block_eff), -(-v // block_eff), x.device)
     lib = build.library("fused_scatter", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        code = lib.fused_topk_scatter(dtype, x.data_ptr(), out.data_ptr(), n, v, block_eff,
-                                      per_block, None if work is None else work.data_ptr(),
-                                      build.stream_of(x))
-    build.check(lib, "fused_topk_scatter", code)
+    # the stream asked for by device index: torch's shortest public path to it
+    code = lib.fused_topk_scatter(dtype, x.data_ptr(), out.data_ptr(), n, v, block_eff,
+                                  per_block, torch.cuda.current_stream(index).cuda_stream)
+    if code:
+        build.check(lib, "fused_topk_scatter", code)
     launches.add()
     return out

@@ -27,7 +27,7 @@ from repro_torch.kernels.bitonic import key_pos, key_valid, sort_desc, topk_keys
 BITONIC_MIN_K = 65
 METHODS = ("argmax", "bitonic")
 ARGMAX_STATIC_SMEM = 256  # the argmax body's per-warp winners (csrc/topk_compress.cu)
-SELECT_STATIC_SMEM = 4096  # bounds the bitonic body's radix::Smem (static_assert there)
+SELECT_STATIC_SMEM = 4096  # bounds the bitonic body's radix::Rows<1> (static_assert there)
 
 launches = {m: build.LaunchCounter(f"topk_compress_{m}") for m in METHODS}
 

@@ -3,7 +3,9 @@
 ``repro``'s Pallas kernels cast their input to fp32, compute in fp32, write
 in the input's dtype and bound no block size.  The port's kernels do the
 same on the card: bfloat16 as well as float32, any block of the top-k
-kernels (keys past a CTA's shared memory go to a device scratch buffer),
+kernels (fused_topk_scatter keeps no per-lane state outside registers;
+topk_compress's working set past a CTA's shared memory goes to a device
+scratch buffer),
 any K·D of kmeans_assign (centers walked in tiles) and any SSD chunk (a
 chunk past shared memory runs as sub-chunks).
 
@@ -14,6 +16,8 @@ skip elsewhere.  JAX is imported only inside the tests that compare with
 repro, so ``pytest -m cuda`` runs on a GPU machine without JAX.
 """
 
+import ast
+import inspect
 import threading
 import time
 
@@ -25,8 +29,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.sparse import block_layout  # noqa: E402
 from repro_torch.data import kmeans_dataset  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.accumulate import fused_scatter  # noqa: E402
 from repro_torch.kernels.accumulate.fused_scatter import (  # noqa: E402
-    fused_topk_scatter, fused_topk_scatter_plain, lanes)
+    fused_topk_scatter, fused_topk_scatter_plain)
 from repro_torch.kernels.accumulate.kernel import (  # noqa: E402
     accumulate_blocked, accumulate_rows_unchecked)
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
@@ -38,8 +43,8 @@ from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
 
 SSD_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4),       # test_kernels.py:193
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}      # the repo's bf16 tolerance
-# blocks past the old 1,024-lane limit and past the 16,384 lanes whose keys
-# and fold accumulators fit shared memory; (V, k, block)
+# blocks past the old 1,024-lane limit: 2,048 (the fused kernel's values in
+# registers) and 40,000 (read again from x on each pass); (V, k, block)
 BIG_BLOCKS = [(20_000, 600, 2048), (50_000, 3000, 40_000)]
 
 
@@ -249,12 +254,18 @@ def test_dtype_code_takes_float32_and_bfloat16_only():
 
 
 def test_working_sets_past_shared_memory_take_scratch():
-    """A block's keys and fold accumulators (fused: 12 bytes a lane), the
-    selected keys (bitonic: 8 a key, padded to a power of two) or magnitudes
-    (argmax: 4 an entry) stay in shared memory up to 16,384 lanes, 16,384
-    keys — whatever the block — and 58,048 entries."""
-    assert lanes(16_384) == 16_384 and lanes(16_385) == 32_768 and lanes(7) == 8
-    assert 12 * lanes(16_384) <= build.MAX_SHARED_BYTES < 12 * lanes(16_385)
+    """fused_topk_scatter needs no scratch at any block: its per-lane
+    values and fold stay in registers (or are read again from x), so its
+    wrapper calls no build.scratch (on the card,
+    test_fused_topk_scatter_rows_and_blocks asserts that a call allocates
+    nothing beside its output at blocks 1,024 to 65,536).  The selected
+    keys (bitonic: 8 a key, padded to a power of two) or magnitudes (argmax:
+    4 an entry) stay in shared memory up to 16,384 keys — whatever the
+    block — and 58,048 entries."""
+    tree = ast.parse(inspect.getsource(fused_scatter))
+    called = {ast.unparse(node.func) for node in ast.walk(tree) if isinstance(node, ast.Call)}
+    assert "build.library" in called
+    assert not [name for name in called if name.split(".")[-1] == "scratch"]
     assert work_bytes(16_384, 16_384, "bitonic") + SELECT_STATIC_SMEM <= build.MAX_SHARED_BYTES
     assert work_bytes(65_536, 16_385, "bitonic") > build.MAX_SHARED_BYTES
     assert work_bytes(1024, 7, "bitonic") == 8 * 8
@@ -324,8 +335,8 @@ def _launched(name, fn):
                                          (4, 30_000, 3000, 2048), (4, 40_000, 4000, 16_384),
                                          (2, 150_000, 9000, 65_536), (3, 70_000, 70_000, 65_536)])
 def test_fused_topk_scatter_kernel_inputs(cuda, dtype, n, v, k, block):
-    """bf16, and blocks of 2,048 and 16,384 (shared memory) and 65,536
-    (device scratch): bit-exact with the plain version."""
+    """bf16, and blocks of 2,048 (values in registers), 16,384 and 65,536
+    (values read again from x): bit-exact with the plain version."""
     rng = np.random.default_rng(block)
     _, be, pb = block_layout(v, k, block)
     for density in (0.01, 0.3, 1.0):
@@ -334,6 +345,51 @@ def test_fused_topk_scatter_kernel_inputs(cuda, dtype, n, v, k, block):
                         lambda: fused_topk_scatter(x, per_block=pb, block_eff=be))
         assert got.dtype == dtype
         assert torch.equal(got, fused_topk_scatter_plain(x, pb, be)), density
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits, so that -0.0 and +0.0 differ."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 4, 70])
+@pytest.mark.parametrize("v,k,block", [(20_000, 5000, 1024), (40_000, 4000, 16_384),
+                                       (150_000, 9000, 65_536)])
+def test_fused_topk_scatter_rows_and_blocks(cuda, dtype, n, v, k, block):
+    """The radix-select kernel at 1, 4 and 70 rows (one partial group of 4,
+    one whole, 18 groups the last partial) and at blocks of 1,024, 16,384
+    and 65,536 (70 rows: each fold tile selects again):
+    one launch a call, no allocation beside the output, bit-exact with the
+    plain version, and two calls back to back bit-equal."""
+    _, be, pb = block_layout(v, k, block)
+    x = torch.from_numpy(_sparse(np.random.default_rng(n + block), (n, v), 0.3)).to(cuda, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = _launched("fused_topk_scatter", lambda: fused_topk_scatter(x, per_block=pb, block_eff=be))
+    out_bytes = -(-v * x.element_size() // 512) * 512     # the caching allocator's rounding
+    assert torch.cuda.max_memory_allocated() - before <= out_bytes
+    again = _launched("fused_topk_scatter",
+                      lambda: fused_topk_scatter(x, per_block=pb, block_eff=be))
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(got), _bits(fused_topk_scatter_plain(x, pb, be)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_topk_scatter_one_row_keeps_negative_zero(cuda, dtype):
+    """N = 1: a kept -0.0 stays -0.0 (acc = c_0, not 0 + c_0) and a dropped
+    lane is +0.0, bit for bit as the plain version."""
+    rng = np.random.default_rng(5)
+    x = rng.choice(np.array([0.0, -0.0, 3.0, -3.0], np.float32), size=(1, 5000),
+                   p=[0.45, 0.45, 0.05, 0.05])
+    _, be, pb = block_layout(5000, 2000, 1024)
+    t = torch.from_numpy(x).to(cuda, dtype)
+    got = _launched("fused_topk_scatter", lambda: fused_topk_scatter(t, per_block=pb, block_eff=be))
+    assert torch.equal(_bits(got), _bits(fused_topk_scatter_plain(t, pb, be)))
+    assert bool(torch.signbit(got[got == 0]).any())
 
 
 @pytest.mark.cuda

@@ -15,12 +15,11 @@ on inputs made from a seed with numpy.
 
 import numpy as np
 import pytest
+from radix_select_model import key_hi, select_rows
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.topk_compress.ops import topk_compress_plain  # noqa: E402
-
-BINS, DIGIT = 256, 8
 
 
 def layout(block_v: int):
@@ -33,46 +32,10 @@ def layout(block_v: int):
     return 0, 1024
 
 
-def key_hi(x32: np.ndarray, nvalid: int) -> np.ndarray:
-    """bits(|x|) + 1 for the lanes below nvalid, 0 past the vector."""
-    hi = np.abs(x32).view(np.uint32).astype(np.uint64) + 1
-    hi[nvalid:] = 0
-    return hi
-
-
-def find_bin(hist: np.ndarray, need: int):
-    """Warp 0's search: lane l sums bins 8l..8l+7, a suffix sum over the
-    lanes, then each lane walks its bins from the top."""
-    c = hist.reshape(32, BINS // 32)
-    mine = c.sum(axis=1)
-    suffix = np.cumsum(mine[::-1])[::-1]          # inclusive, over lanes >= l
-    found = []
-    for lane in range(32):
-        above = int(suffix[lane] - mine[lane])
-        for i in range(BINS // 32 - 1, -1, -1):
-            if above < need <= above + int(c[lane, i]):
-                found.append((lane * (BINS // 32) + i, above, int(c[lane, i])))
-            above += int(c[lane, i])
-    assert len(found) == 1
-    return found[0]
-
-
 def select(hi: np.ndarray, k: int):
-    """radix::select: (prefix, mask, need, eq) after at most four passes."""
-    prefix = mask = 0
-    need, eq = k, 0
-    for shift in range(32 - DIGIT, -1, -DIGIT):
-        match = (hi & mask) == prefix
-        hist = np.bincount(((hi[match] >> shift) & (BINS - 1)).astype(np.int64),
-                           minlength=BINS)
-        b, above, count = find_bin(hist, need)
-        prefix |= b << shift
-        mask |= (BINS - 1) << shift
-        need -= above
-        eq = count
-        if eq == need:
-            break
-    return prefix, mask, need, eq
+    """The bitonic body's one row through radix::select_rows."""
+    (cut,), _ = select_rows(hi[None], k)
+    return cut
 
 
 def bitonic_sort_desc(keys: np.ndarray) -> np.ndarray:
