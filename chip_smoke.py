@@ -187,9 +187,10 @@ BF16_TOL = dict(rtol=3e-2, atol=3e-2)                      # the repo's bf16 tol
 # registers to 2,048 lanes and reads x again on each pass past that; C
 # keeps them in registers to 16,384 and B its magnitudes in shared memory;
 # at 65,536 C reads x again and B works in device scratch; D (N, D, K): K
-# 1,024 at D 64 (centers in tiles), K 9,000, D 60,000 (no center row fits
-# shared memory; its points integer-valued, so that sums of 60,000 products
-# are exact in fp32 in any order and kernel and plain agree exactly)
+# 1,024 at D 64 and K 9,000 at D 8 (the tiles body), D 60,000 (the wide
+# body, D split across a CTA; its points integer-valued, so that sums of
+# 60,000 products are exact in fp32 in any order and kernel and plain agree
+# exactly)
 A_INPUTS = [(4, 16384, 512, 1024), (3, 900, 900, 256), (4, 30_000, 3000, 2048),
             (4, 40_000, 4000, 16_384), (2, 150_000, 9000, 65_536),
             (3, 70_000, 70_000, 65_536)]
@@ -359,22 +360,29 @@ def check_kernels(rng) -> dict:
         ctr = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).cuda()
         a, dist = kmeans_assign(pts, ctr)
         check_assign(pts, ctr, a, dist, *kmeans_assign_plain(pts, ctr))
-    data, _, _ = kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)
+    # thread 0's share data[:n] and thread 1's data[n:2n], whose pointer is
+    # 8-byte aligned (n·54·4 bytes ≡ 8 mod 16), as Session.spawn hands them
+    data = torch.from_numpy(kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)[0]).cuda()
     n, k, d = COV_ROWS // N_THREADS, COV_K, COV_FEATURES
-    pts = torch.from_numpy(data[:n]).cuda()
-    ctr = torch.from_numpy(data[np.random.default_rng(SEED).choice(
-        COV_ROWS, COV_K, replace=False)]).cuda()
-    a, dist = kmeans_assign(pts, ctr)
-    pa, pd = kmeans_assign_plain(pts, ctr)
-    check_assign(pts, ctr, a, dist, pa, pd)
+    ctr = data[torch.from_numpy(np.random.default_rng(SEED).choice(
+        COV_ROWS, COV_K, replace=False)).cuda()]
     t, by = bound_ms((n * d + k * d + 2 * n) * 4, 2.0 * n * k * d)
-    results["kmeans_assign"] = dict(
-        shape=f"points ({n}, {d}) f32, centers ({k}, {d})",
-        max_abs_err=float((dist - pd).abs().max()),
-        ms=time_ms(lambda: kmeans_assign(pts, ctr), 20),
-        device_ms=graph_ms(lambda: kmeans_assign(pts, ctr), 50),
-        plain_ms=time_ms(lambda: kmeans_assign_plain(pts, ctr), 20),
-        bound_ms=t, bound_by=by, library_ms=None)
+    per_share, err = {}, 0.0
+    for tid in (0, 1):
+        pts = data[tid * n:(tid + 1) * n]
+        a, dist = kmeans_assign(pts, ctr)
+        pa, pd = kmeans_assign_plain(pts, ctr)
+        check_assign(pts, ctr, a, dist, pa, pd)
+        err = max(err, float((dist - pd).abs().max()))
+        per_share[f"thread {tid}"] = dict(
+            shape=f"points ({n}, {d}) f32 at pointer mod 16 = {pts.data_ptr() % 16}, "
+                  f"centers ({k}, {d})",
+            ms=time_ms(lambda: kmeans_assign(pts, ctr), 20),
+            device_ms=graph_ms(lambda: kmeans_assign(pts, ctr), 50),
+            plain_ms=time_ms(lambda: kmeans_assign_plain(pts, ctr), 20),
+            bound_ms=t, bound_by=by, library_ms=None)
+    log("kmeans_assign per thread share:", json.dumps(per_share))
+    results["kmeans_assign"] = dict(per_share["thread 0"], max_abs_err=err)
     return results
 
 
@@ -548,16 +556,21 @@ def check_inputs(rng) -> dict:
            lambda: topk_compress_plain(x, pb, be), LJ_VERTICES * 2 + nb * pb * 6,
            reps=20, device=True)
 
-    # D: kmeans_assign at bf16 (one thread's share of Covertype) and past
-    # one CTA's shared memory
+    # D: kmeans_assign at bf16 (thread 0's share of Covertype and thread 1's,
+    # 4-byte aligned) and at the other bodies' shapes
     data, _, _ = kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)
     n, k, d = COV_ROWS // N_THREADS, COV_K, COV_FEATURES
-    pts = torch.from_numpy(data[:n]).cuda().to(BF16)
-    ctr = pts[torch.from_numpy(np.random.default_rng(SEED).choice(n, k, replace=False)).cuda()]
-    check_assign(pts.float(), ctr.float(), *kmeans_assign(pts, ctr), *kmeans_assign_plain(pts, ctr))
-    record("D bf16 covertype", f"points ({n}, {d}) bf16, centers ({k}, {d})",
-           lambda: kmeans_assign(pts, ctr), lambda: kmeans_assign_plain(pts, ctr),
-           (n * d + k * d) * 2 + 8 * n, 2.0 * n * k * d, reps=20, device=True)
+    bf = torch.from_numpy(data[:2 * n]).cuda().to(BF16)
+    ctr = bf[torch.from_numpy(np.random.default_rng(SEED).choice(n, k, replace=False)).cuda()]
+    for tid in (0, 1):
+        pts = bf[tid * n:(tid + 1) * n]
+        check_assign(pts.float(), ctr.float(), *kmeans_assign(pts, ctr),
+                     *kmeans_assign_plain(pts, ctr))
+        record(f"D bf16 covertype{' thread 1' if tid else ''}",
+               f"points ({n}, {d}) bf16 at pointer mod 16 = {pts.data_ptr() % 16}, "
+               f"centers ({k}, {d})",
+               lambda: kmeans_assign(pts, ctr), lambda: kmeans_assign_plain(pts, ctr),
+               (n * d + k * d) * 2 + 8 * n, 2.0 * n * k * d, reps=20, device=True)
     for n, d, k in D_INPUTS:
         for dtype in (torch.float32, BF16):
             if d > 10_000:
@@ -572,7 +585,8 @@ def check_inputs(rng) -> dict:
             check_assign(pts.float(), ctr.float(), *got, *want)
             record(f"D {DTYPE_NAMES[dtype]} K {k} D {d}", f"points ({n}, {d}), centers ({k}, {d})",
                    lambda: kmeans_assign(pts, ctr), lambda: kmeans_assign_plain(pts, ctr),
-                   (n * d + k * d) * pts.element_size() + 8 * n, 2.0 * n * k * d)
+                   (n * d + k * d) * pts.element_size() + 8 * n, 2.0 * n * k * d,
+                   device=True)
 
     # F: ssd_scan at bf16 and at chunk 256, at the mamba2-2.7b prefill shape
     b, t, h, p, g, n = LM_BATCH, LM_PREFILL, 80, 64, 1, 128

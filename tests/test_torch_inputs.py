@@ -6,8 +6,9 @@ same on the card: bfloat16 as well as float32, any block of the top-k
 kernels (fused_topk_scatter keeps no per-lane state outside registers;
 topk_compress's working set past a CTA's shared memory goes to a device
 scratch buffer),
-any K·D of kmeans_assign (centers walked in tiles) and any SSD chunk (a
-chunk past shared memory runs as sub-chunks).
+any K·D of kmeans_assign (three bodies chosen by shape, any pointer
+alignment) and any SSD chunk (a chunk past shared memory runs as
+sub-chunks).
 
 On the CPU each wrapper runs its plain version, held here against repro in
 interpret mode on the same numpy inputs.  Tests marked ``cuda`` hold each
@@ -27,13 +28,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.sparse import block_layout  # noqa: E402
-from repro_torch.data import kmeans_dataset  # noqa: E402
+from repro_torch.data import kmeans_dataset, partition_rows  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.accumulate import fused_scatter  # noqa: E402
 from repro_torch.kernels.accumulate.fused_scatter import (  # noqa: E402
     fused_topk_scatter, fused_topk_scatter_plain)
 from repro_torch.kernels.accumulate.kernel import (  # noqa: E402
     accumulate_blocked, accumulate_rows_unchecked)
+from repro_torch.kernels.kmeans_assign import ops as kmeans_ops  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes, ssd_scan, sub_chunk  # noqa: E402
@@ -411,27 +413,13 @@ def test_topk_compress_kernels_inputs(cuda, dtype, v, k, bv):
         assert torch.equal(i, pi) and torch.equal(val, pv), method
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,d,k", [(145_253, 54, 7), (20_000, 64, 1024), (3000, 8, 9000),
-                                   (300, 60_000, 3)])
-def test_kmeans_assign_kernel_inputs(cuda, dtype, n, d, k):
-    """bf16; K 1,024 at D 64 (centers in tiles); K 9,000 (many tiles); D
-    60,000 (no center row fits: rows read from device memory).  At D 60,000
-    the kernel's sequential FMA chains and the plain version's matrix
-    product round far apart (each ~60,000 terms), so that case takes
-    integer-valued points in {-1, 0, 1}: every partial sum is exact in fp32
-    and the two must agree exactly."""
-    rng = np.random.default_rng(d)
-    if d > 10_000:
-        x = rng.integers(-1, 2, size=(n, d)).astype(np.float32)
-    else:
-        x = rng.normal(size=(n, d)).astype(np.float32)
-    pts = torch.from_numpy(x).to(cuda, dtype)
-    ctr = pts[rng.choice(n, k, replace=n < k)].clone()
-    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+def _assign_held_to_plain(pts, ctr, a, dist, exact=False):
+    """PERF.md §2's contract against the plain version on the card: equal
+    assignments except where the two best d² tie within 1e-5 relative;
+    dist² within rtol 1e-5 plus 1e-6·max‖p‖²; exactly equal where
+    ``exact``."""
     pa, pd = kmeans_assign_plain(pts, ctr)
-    if d > 10_000:
+    if exact:
         assert torch.equal(a, pa) and torch.equal(dist, pd)
     p32 = pts.float()
     diff = a.long() != pa.long()
@@ -441,6 +429,113 @@ def test_kmeans_assign_kernel_inputs(cuda, dtype, n, d, k):
         assert bool(((two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs()).all())
     torch.testing.assert_close(dist, pd, rtol=1e-5,
                                atol=1e-6 * float((p32 * p32).sum(1).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,k", [(145_253, 54, 7), (20_000, 64, 1024), (3000, 8, 9000),
+                                   (300, 60_000, 3)])
+def test_kmeans_assign_kernel_inputs(cuda, dtype, n, d, k):
+    """bf16; K 1,024 at D 64 and K 9,000 at D 8 (the tiles body); D 60,000
+    (the wide body: D split across a CTA's threads, summed by a tree).  At
+    D 60,000 the kernel's sums and the plain version's matrix product round
+    far apart (each ~60,000 terms), so that case takes integer-valued
+    points in {-1, 0, 1}: every partial sum is exact in fp32 and the two
+    must agree exactly."""
+    rng = np.random.default_rng(d)
+    if d > 10_000:
+        x = rng.integers(-1, 2, size=(n, d)).astype(np.float32)
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+    pts = torch.from_numpy(x).to(cuda, dtype)
+    ctr = pts[rng.choice(n, k, replace=n < k)].clone()
+    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+    _assign_held_to_plain(pts, ctr, a, dist, exact=d > 10_000)
+
+
+@pytest.fixture(scope="module")
+def covertype():
+    """Covertype-shaped rows (581,012 x 54, 7 clusters, seed 0) on the card
+    and kmeans.fit's initial centers for seed 0, made once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    x, _, _ = kmeans_dataset(581_012, 54, 7, seed=0)
+    c = x[np.random.default_rng(0).choice(581_012, 7, replace=False)]
+    return torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tid", [1, 3])
+def test_kmeans_assign_unaligned_thread_share(cuda, covertype, dtype, tid):
+    """The view kmeans.fit's thread tid of 4 gets of Covertype's rows
+    (Session.spawn's ``a[lo:hi]``): at 54 features its pointer is 8-byte
+    (f32) or 4-byte (bf16) aligned, not 16, and the rows body loads its
+    tiles from their first 16-byte boundary."""
+    x, c = covertype
+    lo, hi = partition_rows(x.shape[0], tid, 4)
+    pts, ctr = x.to(dtype)[lo:hi], c.to(dtype)
+    assert pts.data_ptr() % 16 != 0
+    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+    _assign_held_to_plain(pts, ctr, a, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,k,pairs", [
+    (300, 54, 16, (7,)),                 # rows: one thread walks all 16 centers
+    (300, 6, 300, (3, 255)),             # tiles of 16 points: a run of 4, a center tile
+    (16_896, 6, 300, (3, 127, 255)),     # tiles of 64: a run of 4, a thread's two runs, a tile
+    (40, 4096, 12, (7,))])               # wide: a group of 8 centers
+def test_kmeans_assign_duplicate_centers(cuda, dtype, n, d, k, pairs):
+    """Center i + 1 equal to center i where each body splits the centers
+    (between threads, a thread's runs, center tiles or groups), every point
+    one step from one of a pair: it goes to i, the lower index, as in the
+    plain version.  Integer values keep every sum exact in both versions, so
+    the two d² of a pair are equal in the plain version's product too."""
+    rng = np.random.default_rng(k)
+    ctr = rng.integers(-50, 51, size=(k, d)).astype(np.float32)
+    for i in pairs:
+        ctr[i + 1] = ctr[i]
+    src = np.array(pairs)[np.arange(n) % len(pairs)]
+    pts = ctr[src] + (rng.random(size=(n, d)) < 2 / d) * rng.choice([-1.0, 1.0], size=(n, d))
+    pts = pts.astype(np.float32)
+    pts, ctr = torch.from_numpy(pts).to(cuda, dtype), torch.from_numpy(ctr).to(cuda, dtype)
+    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+    assert torch.equal(a, kmeans_assign_plain(pts, ctr)[0])
+    assert np.array_equal(a.cpu().numpy(), src)
+    _assign_held_to_plain(pts, ctr, a, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1, 54, 7), (129, 54, 7), (1, 64, 1024), (17, 64, 1024),
+                                   (16_897, 64, 300), (1, 4096, 3)])
+def test_kmeans_assign_one_point_and_one_past_a_tile(cuda, n, d, k):
+    """N = 1 in each body, and one point past a tile: 128 rows a CTA, 16 and
+    64 points a CTA of the tiles body."""
+    rng = np.random.default_rng(n + d)
+    pts = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    ctr = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(cuda)
+    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+    _assign_held_to_plain(pts, ctr, a, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(500, 54, 16), (500, 54, 17), (500, 64, 7), (500, 65, 7),
+                                   (50, 2047, 3), (50, 2048, 3), (50, 2048, 32), (50, 2048, 33),
+                                   (263 * 64, 8, 300), (263 * 64 + 1, 8, 300)])
+def test_kmeans_assign_regime_bounds(cuda, n, d, k):
+    """Each bound of the regimes ± 1: the library takes the body ops.regime
+    mirrors, and the result holds."""
+    lib = build.library("kmeans_assign", kmeans_ops._SIGNATURES)
+    body, points = kmeans_ops.regime(n, d, k)
+    want = {"rows": 0, "wide": 2}.get(body, 1 + 100 * points)
+    assert lib.kmeans_assign_regime(n, d, k) == want
+    rng = np.random.default_rng(d + k)
+    pts = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    ctr = pts[rng.choice(n, k, replace=False)].clone()
+    a, dist = _launched("kmeans_assign", lambda: kmeans_assign(pts, ctr))
+    _assign_held_to_plain(pts, ctr, a, dist)
 
 
 @pytest.mark.cuda
