@@ -29,8 +29,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              decode-shaped T = 1, the qwen3 shape at batch 1); ssd_scan
              also off its tiles (N 12 / P 20, N 13 / P 7), over a chain of
              64 chunks, twice in a row and replayed from a CUDA graph, each
-             bit-equal to the eager call; both flash bodies', topk_compress's
-             radix body's, fused_topk_scatter's, sparse_scatter_add's and
+             bit-equal to the eager call; both flash bodies', both
+             topk_compress bodies', fused_topk_scatter's, sparse_scatter_add's and
              ssd_scan's -Xptxas -v lines (registers, spills) are printed; the bounds of the fp32
              flash body and of ssd_scan are the 3xTF32 tensor-core ones (the
              fp32 pipes' printed beside them).  The bf16 (wgmma) body is
@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              ssd_scan at chunk 256), each held and timed beside its plain
              version; accumulate_blocked's and sparse_scatter_add's
              host cost split into the parts of their launch paths (g_split,
-             1,000 calls each; h_split, 200); ssd_scan at mamba2's prefill
+             1,000 calls each; h_split, 200), and topk_compress's at
+             logreg's shape (b_split); ssd_scan at mamba2's prefill
              shape in f32 / bf16 at chunks 128 / 256, a call and on the
              device (f_timings); fused_topk_scatter likewise at pagerank's
              and logreg's shapes in f32 / bf16 (a_timings).
@@ -184,9 +185,10 @@ BF16_TOL = dict(rtol=3e-2, atol=3e-2)                      # the repo's bf16 tol
 # inputs the JAX package's kernels take off the float32 main path
 # (tests/test_torch_inputs.py's cuda shapes): A (N, V, k, block) and
 # B/C (V, k, block) at blocks past 1,024 lanes: A keeps its values in
-# registers to 2,048 lanes and reads x again on each pass past that; C
-# keeps them in registers to 16,384 and B its magnitudes in shared memory;
-# at 65,536 C reads x again and B works in device scratch; D (N, D, K): K
+# registers to 2,048 lanes and reads x again on each pass past that; B and
+# C keep their keys in registers to 16,384; at 65,536 C reads x again on
+# each pass and B streams chunks of 16,384 lanes through its warps' lists
+# (k 300: B in two segments of at most 256 keys); D (N, D, K): K
 # 1,024 at D 64 and K 9,000 at D 8 (the tiles body), D 60,000 (the wide
 # body, D split across a CTA; its points integer-valued, so that sums of
 # 60,000 products are exact in fp32 in any order and kernel and plain agree
@@ -343,14 +345,15 @@ def check_kernels(rng) -> dict:
                                                      method=method), 50),
             library_device_ms=graph_ms(lambda: torch.topk(mags, pb, dim=1), 50))
     # the BITONIC_MIN_K evidence: both bodies over k_per_block on 1024-lane
-    # blocks of the pagerank-sized vector
+    # blocks of the pagerank-sized vector, a call and on the device
     x = rng_sparse(rng, (LJ_VERTICES,), 0.3)
     for kpb in (4, 8, 16, 32, 64, 128, 256):
-        crossover[f"V={LJ_VERTICES},k_per_block={kpb}"] = {
-            m: time_ms(lambda m=m: topk_compress(x, k_per_block=kpb, block_v=1024,
-                                                 method=m), 10)
-            for m in ("argmax", "bitonic")}
-    log("topk_compress crossover (ms, argmax vs bitonic):", json.dumps(crossover))
+        for m in ("argmax", "bitonic"):
+            call = lambda m=m: topk_compress(x, k_per_block=kpb, block_v=1024, method=m)
+            crossover.setdefault(f"V={LJ_VERTICES},k_per_block={kpb}", {})[m] = \
+                (time_ms(call, 10), graph_ms(call, 10))
+    log("topk_compress crossover (ms, argmax vs bitonic; the main-path shapes a call, "
+        "the sweep a call and device):", json.dumps(crossover))
 
     # D: kmeans_assign — test_kernels.py's sweep, then one thread's share of
     # the Covertype-shaped data against the initial centers, as kmeans.fit
@@ -492,8 +495,8 @@ def check_inputs(rng) -> dict:
     bf16 (the mamba2-2.7b prefill shape) and within 3e-4 at chunk 256 (two
     sub-chunks of 128); A and C also at bf16 at pagerank's V.  Each is timed
     per call (CUDA events) beside its plain version and a bound (A past
-    1,024 lanes; B and C at every C_INPUTS entry; F 3xTF32, and its device
-    time by graph replay too); the float32 main-path rows of phase 3 are the
+    1,024 lanes; B and C at every C_INPUTS entry, and their device time
+    by graph replay too; F 3xTF32, and its device time); the float32 main-path rows of phase 3 are the
     yardstick.  Returns the timings."""
     from repro_torch.kernels.ssd_scan.kernel import sub_chunk
 
@@ -544,7 +547,7 @@ def check_inputs(rng) -> dict:
                        f"x ({v},), k_per_block {k}",
                        lambda m=m: topk_compress(x, k_per_block=k, block_v=bv, method=m),
                        lambda: topk_compress_plain(x, k, bv),
-                       v * x.element_size() + nb * k * (4 + x.element_size()))
+                       v * x.element_size() + nb * k * (4 + x.element_size()), device=True)
     nb, be, pb = block_layout(LJ_VERTICES, LJ_VERTICES // 4)
     x = rng_sparse(rng, (LJ_VERTICES,), 0.3).to(BF16)
     pi, pv = topk_compress_plain(x, pb, be)
@@ -747,6 +750,44 @@ def h_split(rng) -> dict:
     split = {name: host_us(fn, 200) for name, fn in parts.items()}
     log(f"sparse_scatter_add host split at pagerank's unfused round ({N_THREADS} x "
         f"{idx.shape[1]} pairs), us per call over 200 calls:", json.dumps(split))
+    return split
+
+
+def b_split(rng) -> dict:
+    """topk_compress's host cost at logreg's unfused shape (x (512,) f32,
+    block 512, k 32: the argmax body) and pagerank's (the bitonic body),
+    split into the parts of its launch path, each called 1,000 times in a
+    row (host µs per call): the outputs' allocation, the stream, the
+    ctypes call that launches the argmax body, and whole calls of either
+    body beside torch.topk of the blocked magnitudes.  Imports what it
+    times when it runs, as g_split does."""
+    from repro_torch.kernels.topk_compress import ops as b_ops
+
+    x = rng_sparse(rng, (LR_FEATURES,), 0.3)
+    lib = build.library("topk_compress", b_ops._SIGNATURES)
+    idx = torch.empty(LR_K, dtype=torch.int32, device="cuda")
+    vals = torch.empty(LR_K, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    mags = x.abs()[None]
+    nb, be, pb = block_layout(LJ_VERTICES, LJ_VERTICES // 4)
+    xp = rng_sparse(rng, (LJ_VERTICES,), 0.3)
+    parts = {
+        "torch.empty x 2": lambda: (torch.empty(LR_K, dtype=torch.int32, device="cuda"),
+                                    torch.empty(LR_K, device="cuda")),
+        "torch.cuda.current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(0).cuda_stream,
+        "ctypes call (the argmax launch)": lambda: lib.topk_compress(
+            0, x.data_ptr(), idx.data_ptr(), vals.data_ptr(), LR_FEATURES, LR_FEATURES, LR_K,
+            0, None, stream),
+        "topk_compress argmax, logreg": lambda: b_ops.topk_compress(
+            x, k_per_block=LR_K, block_v=LR_FEATURES, method="argmax"),
+        "torch.topk, logreg": lambda: torch.topk(mags, LR_K, dim=1),
+        "topk_compress bitonic, pagerank": lambda: b_ops.topk_compress(
+            xp, k_per_block=pb, block_v=be, method="bitonic")}
+    split = {name: host_us(fn, 1000 if "pagerank" not in name else 200)
+             for name, fn in parts.items()}
+    log(f"topk_compress host split (logreg's x ({LR_FEATURES},), k {LR_K}; pagerank's "
+        f"{nb} blocks), us per call:", json.dumps(split))
     return split
 
 
@@ -1443,6 +1484,7 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} sources")
     for lib, label, marker in (("flash_attention", "flash_attention_f32", "flash_tf32_kernel"),
                                ("flash_attention", "flash_attention_bf16", "flash_wgmma_kernel"),
+                               ("topk_compress", "topk_compress_argmax", "topk_list_kernel"),
                                ("topk_compress", "topk_compress_bitonic", "topk_radix_kernel"),
                                ("fused_scatter", "fused_topk_scatter", "fused_radix_kernel"),
                                ("scatter_add", "sparse_scatter_add", "scatter_rows_kernel"),
@@ -1459,6 +1501,7 @@ def main() -> None:
     check_inputs(rng)
     g_split(rng)
     h_split(rng)
+    b_split(rng)
     f_timings(rng)
     a_timings(rng)
     for name, m in measured.items():

@@ -171,11 +171,11 @@ def blocked_topk_sparsify(x: torch.Tensor, k: int, block: int = DEFAULT_BLOCK, *
     nblocks, block_eff, per_block = block_layout(n, k, block)
     if impl == "kernel":
         from repro_torch.kernels.topk_compress.ops import topk_compress
-        idx, vals = topk_compress(x, k_per_block=per_block, block_v=block_eff)
-    elif impl == "torch":
-        idx, vals = _blocked_topk_torch(x, nblocks, block_eff, per_block)
-    else:
+        # topk_compress already gives (0, 0) past n: the pairs as they are
+        return SparsePairs(*topk_compress(x, k_per_block=per_block, block_v=block_eff), n)
+    if impl != "torch":
         raise ValueError(f"impl must be kernel|torch, got {impl!r}")
+    idx, vals = _blocked_topk_torch(x, nblocks, block_eff, per_block)
     # normalise the padded tail: index 0 / value 0 is a harmless scatter-add
     in_range = idx < n
     return SparsePairs(torch.where(in_range, idx, 0).to(torch.int32),

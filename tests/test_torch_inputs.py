@@ -3,9 +3,9 @@
 ``repro``'s Pallas kernels cast their input to fp32, compute in fp32, write
 in the input's dtype and bound no block size.  The port's kernels do the
 same on the card: bfloat16 as well as float32, any block of the top-k
-kernels (fused_topk_scatter keeps no per-lane state outside registers;
-topk_compress's working set past a CTA's shared memory goes to a device
-scratch buffer),
+kernels (fused_topk_scatter and topk_compress's argmax body keep no
+per-lane state outside registers and shared memory; the bitonic body's
+selected keys past a CTA's shared memory go to a device scratch buffer),
 any K·D of kmeans_assign (three bodies chosen by shape, any pointer
 alignment) and any SSD chunk (a chunk past shared memory runs as
 sub-chunks).
@@ -41,7 +41,7 @@ from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes, ssd_scan, sub_chunk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
-    ARGMAX_STATIC_SMEM, SELECT_STATIC_SMEM, topk_compress, topk_compress_plain, work_bytes)
+    LIST_CAP, SELECT_STATIC_SMEM, topk_compress, topk_compress_plain, work_bytes)
 
 SSD_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4),       # test_kernels.py:193
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}      # the repo's bf16 tolerance
@@ -260,10 +260,12 @@ def test_working_sets_past_shared_memory_take_scratch():
     values and fold stay in registers (or are read again from x), so its
     wrapper calls no build.scratch (on the card,
     test_fused_topk_scatter_rows_and_blocks asserts that a call allocates
-    nothing beside its output at blocks 1,024 to 65,536).  The selected
-    keys (bitonic: 8 a key, padded to a power of two) or magnitudes (argmax:
-    4 an entry) stay in shared memory up to 16,384 keys — whatever the
-    block — and 58,048 entries."""
+    nothing beside its output at blocks 1,024 to 65,536).  Neither does
+    topk_compress's argmax body at any block or k: its warps' lists, 32 of
+    LIST_CAP keys at most, fit shared memory, and its wrapper asks for
+    scratch only on the bitonic path.  The bitonic body's selected keys (8
+    a key, padded to a power of two) stay in shared memory up to 16,384
+    keys, whatever the block."""
     tree = ast.parse(inspect.getsource(fused_scatter))
     called = {ast.unparse(node.func) for node in ast.walk(tree) if isinstance(node, ast.Call)}
     assert "build.library" in called
@@ -272,9 +274,13 @@ def test_working_sets_past_shared_memory_take_scratch():
     assert work_bytes(65_536, 16_385, "bitonic") > build.MAX_SHARED_BYTES
     assert work_bytes(1024, 7, "bitonic") == 8 * 8
     assert build.scratch(work_bytes(65_536, 100, "bitonic"), 4, "cpu", SELECT_STATIC_SMEM) is None
-    assert build.scratch(work_bytes(58_048, 1, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM) is None
-    buf = build.scratch(work_bytes(58_049, 1, "argmax"), 3, "cpu", ARGMAX_STATIC_SMEM)
-    assert buf.numel() == 3 * 4 * 58_049
+    for block, k in [(512, 32), (58_048, 1), (58_049, 1), (65_536, 20_000), (1 << 20, 300)]:
+        assert work_bytes(block, k, "argmax") == 0
+    assert 32 * LIST_CAP * 8 <= build.MAX_SHARED_BYTES
+    wrapper = ast.parse(inspect.getsource(topk_compress))
+    guarded = [node for node in ast.walk(wrapper) if isinstance(node, ast.IfExp)
+               and ast.unparse(node.test) == "bitonic" and "build.scratch" in ast.unparse(node.body)]
+    assert len(guarded) == 1 and ast.unparse(wrapper).count("build.scratch") == 1
 
 
 # -- one bf16 SPARSE accumulator round, fused and unfused, block 2048 -------------
@@ -400,10 +406,10 @@ def test_fused_topk_scatter_one_row_keeps_negative_zero(cuda, dtype):
                                     (40_000, 300, 16_384), (150_000, 24, 65_536),
                                     (200_000, 100, 65_536)])
 def test_topk_compress_kernels_inputs(cuda, dtype, v, k, bv):
-    """Both bodies at bf16 and at blocks of 2,048, 16,384 and 65,536 (the
-    argmax body's magnitudes go to scratch past 58,048 entries; the bitonic
-    body re-reads x on each pass past 16,384 lanes): bit-exact with the
-    plain version."""
+    """Both bodies at bf16 and at blocks of 2,048, 16,384 and 65,536 (past
+    16,384 lanes the argmax body streams chunks of 16,384 from x and the
+    bitonic body re-reads x on each pass): bit-exact with the plain
+    version."""
     x = torch.from_numpy(_sparse(np.random.default_rng(v), (v,))).to(cuda, dtype)
     pi, pv = topk_compress_plain(x, k, min(bv, v))
     for method in ("argmax", "bitonic"):

@@ -94,6 +94,29 @@ def test_blocked_topk_sparsify_bitexact(v, k, block):
             assert np.array_equal(got.vals.numpy(), np.asarray(ref.vals)), impl
 
 
+@pytest.mark.parametrize("v,k,block", [(1000, 40, 256), (1001, 200, 256), (7, 3, 1024),
+                                       (5000, 300, 2048), (70, 70, 16)])
+def test_kernel_pairs_need_no_normalisation(v, k, block):
+    """impl="kernel" hands on topk_compress's pairs as they are: past the
+    vector they are already (0, 0), so on lengths that are no multiple of
+    the block they equal the pairs normalised as impl="torch" normalises
+    its own (index past n -> 0, value -> 0)."""
+    x = _vec(np.random.default_rng(v + k), v)
+    x[::7] *= -1.0
+    t = torch.from_numpy(x)
+    got = T.blocked_topk_sparsify(t, k, block)
+    _, be, pb = T.block_layout(v, k, block)
+    idx, vals = topk_compress(t, k_per_block=pb, block_v=be)
+    in_range = idx < v
+    assert got.n == v and got.idx.dtype == torch.int32
+    assert torch.equal(got.idx, torch.where(in_range, idx, 0).to(torch.int32))
+    assert torch.equal(got.vals.view(torch.int32),
+                       torch.where(in_range, vals, torch.zeros(())).view(torch.int32))
+    assert bool((got.idx < v).all())
+    ref = T.blocked_topk_sparsify(t, k, block, impl="torch")
+    assert torch.equal(got.idx, ref.idx) and torch.equal(got.vals, ref.vals)
+
+
 @pytest.mark.parametrize("n,v,k,block", [
     (4, 16384, 512, 1024),     # the accumulator bench shape
     (8, 1000, 50, 256),        # ragged tail
