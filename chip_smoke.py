@@ -55,7 +55,13 @@ Phases, in order; any failure raises and the run exits non-zero:
              logreg with sparse_k fused and unfused, nmf on Netflix's 17,770
              movie columns (AUTO and reduce_scatter); one bf16 SPARSE round
              through DAddAccumulator at pagerank's V, fused and unfused,
-             bit-exact with its plain path.  accumulate_blocked is timed per
+             bit-exact with its plain path.  Beside the host runs, on the
+             same data, the SPMD backend (4 mesh positions as threads on
+             the card): pagerank AUTO and SPARSE (the edges trimmed to a
+             multiple of 4, and the host runs it is held against given the
+             same edges), kmeans with the kernel, logreg SPARSE and nmf
+             reduce_scatter, each held to the app tolerance against its host
+             run, with the same wire traffic and its launches asserted.  accumulate_blocked is timed per
              call inside the pagerank AUTO run.  Launch counters are
              zeroed just before each run and read just after; every kernel
              must have been launched, the counts each run must give are
@@ -95,7 +101,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch import card_info  # noqa: E402
 from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import HostBackend, Session  # noqa: E402
+from repro_torch.core import HostBackend, Session, SpmdBackend, make_mesh  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     kmeans_dataset, logreg_dataset, nmf_dataset, partition_rows, powerlaw_graph)
@@ -130,6 +136,7 @@ DTYPE_NAMES = {torch.float32: "f32", BF16: "bf16"}
 APP_TOL = dict(rtol=1e-5, atol=1e-6)
 N_NODES, THREADS_PER_NODE = 2, 2
 N_THREADS = N_NODES * THREADS_PER_NODE
+SPMD_POSITIONS = 4          # the SPMD backend's mesh: positions as threads on the card
 ITERS = 10
 SEED = 0
 
@@ -1085,9 +1092,14 @@ def a_timings(rng) -> dict:
 def run_app(label: str, counts: dict, fn):
     """Run ``fn`` with every launch counter zeroed just before and read just
     after; add the run's launches to ``counts``.  Prints wall time and peak
-    device memory."""
+    device memory, beside what earlier runs still held when it started.  A
+    collection first frees the tensors of earlier sessions that only a
+    reference cycle kept, so none is freed during the run and lowers its
+    peak over what is held."""
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     build.reset_launches()
     t0 = time.perf_counter()
     out = fn()
@@ -1097,8 +1109,8 @@ def run_app(label: str, counts: dict, fn):
     for name, c in launched.items():
         counts[name] = counts.get(name, 0) + c
     log(f"run {label}: wall {wall:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
-        f"{json.dumps({k: v for k, v in launched.items() if v})}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({held / 2**30:.3f} held "
+        f"before the run), launches {json.dumps({k: v for k, v in launched.items() if v})}")
     return out, launched
 
 
@@ -1183,6 +1195,60 @@ def session(fused: bool = True) -> Session:
     return Session(backend=HostBackend(N_NODES, THREADS_PER_NODE, fused=fused))
 
 
+def spmd_session() -> Session:
+    return Session(backend=SpmdBackend(mesh=make_mesh((SPMD_POSITIONS,), ("data",))))
+
+
+def same_wire(label: str, spmd: Session, host: Session) -> None:
+    if spmd.wire_traffic() != host.wire_traffic():
+        raise AssertionError(f"{label}: SPMD wire {spmd.wire_traffic()} differs from the "
+                             f"host run's {host.wire_traffic()}")
+
+
+NO_ACCUMULATE_KERNEL = {"fused_topk_scatter": 0, "topk_compress_argmax": 0,
+                        "topk_compress_bitonic": 0, "sparse_scatter_add": 0,
+                        "accumulate_blocked": 0}
+
+
+def run_pagerank_spmd(edges, counts: dict) -> None:
+    """pagerank AUTO and SPARSE (k = V/4) through the SPMD backend, each
+    against a host run of the same edges: the SPMD split is even, so the
+    edges are trimmed to a multiple of the positions first."""
+    trimmed = edges[: edges.shape[0] - edges.shape[0] % SPMD_POSITIONS]
+    log(f"pagerank spmd: {edges.shape[0] - trimmed.shape[0]} of {edges.shape[0]} edges "
+        f"trimmed so that {SPMD_POSITIONS} positions split them evenly")
+    k = LJ_VERTICES // 4
+    (r_h, s_h), _ = run_app("pagerank auto host (trimmed edges)", counts, lambda: pagerank.fit(
+        trimmed, LJ_VERTICES, iters=ITERS, mode="auto", session=session()))
+    (r_s, s_s), launched = run_app("pagerank auto spmd", counts, lambda: pagerank.fit(
+        trimmed, LJ_VERTICES, iters=ITERS, mode="auto", session=spmd_session()))
+    # every round at this scale goes dense: no kernel, the dense (N+1)·V each round
+    expect_launches("pagerank auto spmd", launched, NO_ACCUMULATE_KERNEL)
+    if s_s.wire_traffic() != ITERS * (SPMD_POSITIONS + 1) * LJ_VERTICES:
+        raise AssertionError(f"pagerank auto spmd: wire {s_s.wire_traffic()} is not "
+                             "every round dense")
+    same_wire("pagerank auto spmd", s_s, s_h)
+    close(r_s, r_h, "pagerank auto spmd vs host")
+    (r_hs, s_hs), _ = run_app("pagerank sparse host unfused (trimmed edges)", counts,
+                              lambda: pagerank.fit(trimmed, LJ_VERTICES, iters=ITERS,
+                                                   mode="sparse", k=k, session=session(False)))
+    (r_ss, s_ss), launched = run_app("pagerank sparse spmd", counts, lambda: pagerank.fit(
+        trimmed, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=spmd_session()))
+    # one compression per position and one densify for the round
+    expect_launches("pagerank sparse spmd", launched,
+                    {"topk_compress_bitonic": ITERS * SPMD_POSITIONS,
+                     "sparse_scatter_add": ITERS, "fused_topk_scatter": 0})
+    same_wire("pagerank sparse spmd", s_ss, s_hs)
+    close(r_ss, r_hs, "pagerank sparse spmd vs host")
+    for r in (r_s, r_ss):
+        if r.shape != (LJ_VERTICES,) or not np.all(np.isfinite(r)):
+            raise AssertionError("pagerank spmd: ranks not finite or of the wrong shape")
+    log(f"pagerank spmd: wire auto {s_s.wire_traffic()}, sparse {s_ss.wire_traffic()} "
+        f"(== host); max rel diff vs host auto "
+        f"{float(np.max(np.abs(r_s - r_h) / np.maximum(np.abs(r_h), 1e-30))):.3e}, sparse "
+        f"{float(np.max(np.abs(r_ss - r_hs) / np.maximum(np.abs(r_hs), 1e-30))):.3e}")
+
+
 def kmeans_seed0_spread(x, labels) -> None:
     """From fit's default init (seed 0): run the plain assignment twice and
     the kernel twice, and print how far the centers of each pair of runs lie
@@ -1262,6 +1328,7 @@ def run_apps() -> dict:
             raise AssertionError("pagerank: ranks not finite or of the wrong shape")
     log(f"pagerank sparse: wire {s_f.wire_traffic()} (fused == unfused), "
         f"rank sum auto {r_auto.sum():.6f} sparse {r_f.sum():.6f}")
+    run_pagerank_spmd(edges, counts)
     del edges
     bf16_sparse_round(np.random.default_rng(SEED), counts)
 
@@ -1275,9 +1342,17 @@ def run_apps() -> dict:
     # runs); without split clusters kernel and plain runs are held to 1e-4
     init_seed = next(s for s in range(100_000) if len(set(labels[
         np.random.default_rng(s).choice(COV_ROWS, COV_K, replace=False)])) == COV_K)
-    (c_k, _), launched = run_app("kmeans kernel", counts, lambda: kmeans.fit(
+    (c_k, s_k), launched = run_app("kmeans kernel", counts, lambda: kmeans.fit(
         x, COV_K, iters=ITERS, seed=init_seed, use_kernel=True, session=session()))
     expect_launches("kmeans kernel", launched, {"kmeans_assign": ITERS * N_THREADS})
+    (c_s, s_s), launched = run_app("kmeans kernel spmd", counts, lambda: kmeans.fit(
+        x, COV_K, iters=ITERS, seed=init_seed, use_kernel=True, session=spmd_session()))
+    expect_launches("kmeans kernel spmd", launched, {"kmeans_assign": ITERS * SPMD_POSITIONS})
+    np.testing.assert_allclose(c_s, c_k, rtol=1e-4, atol=1e-5,
+                               err_msg="kmeans spmd vs host (kernel)")
+    same_wire("kmeans spmd", s_s, s_k)
+    log(f"kmeans spmd: centers vs host max abs diff {np.abs(c_s - c_k).max():.3e}, "
+        f"wire {s_s.wire_traffic()} (== host)")
     (c_p, _), _ = run_app("kmeans plain", counts, lambda: kmeans.fit(
         x, COV_K, iters=ITERS, seed=init_seed, use_kernel=False, session=session()))
     np.testing.assert_allclose(c_k, c_p, rtol=1e-4, atol=1e-5,
@@ -1309,6 +1384,15 @@ def run_apps() -> dict:
     if not (np.all(np.isfinite(th_f)) and loss1 < loss0):
         raise AssertionError(f"logreg: loss {loss1} not below the start's {loss0}")
     log(f"logreg: wire {s_f.wire_traffic()} (fused == unfused), loss {loss0:.4f} -> {loss1:.4f}")
+    (th_s, s_s), launched = run_app("logreg sparse spmd", counts, lambda: logreg.fit(
+        x, y, iters=ITERS, lr=LR_STEP, mode="sparse", k=LR_K, session=spmd_session()))
+    expect_launches("logreg sparse spmd", launched,
+                    {"topk_compress_argmax": ITERS * SPMD_POSITIONS,
+                     "sparse_scatter_add": ITERS, "fused_topk_scatter": 0})
+    close(th_s, th_u, "logreg sparse spmd vs host unfused")
+    same_wire("logreg sparse spmd", s_s, s_u)
+    log(f"logreg spmd: theta vs host max abs diff {np.abs(th_s - th_u).max():.3e}, "
+        f"wire {s_s.wire_traffic()} (== host)")
     del x, y
 
     # -- nmf, Netflix's movie columns -----------------------------------------
@@ -1326,9 +1410,17 @@ def run_apps() -> dict:
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=session()))
     expect_launches("nmf reduce_scatter", launched, {"accumulate_blocked": 0})
     np.testing.assert_allclose(q_a, q_d, rtol=1e-4, err_msg="nmf Q, auto vs reduce_scatter")
+    (p_s, q_s, s_s), launched = run_app("nmf reduce_scatter spmd", counts, lambda: nmf.fit(
+        r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=spmd_session()))
+    expect_launches("nmf reduce_scatter spmd", launched, NO_ACCUMULATE_KERNEL)
+    np.testing.assert_allclose(q_s, q_d, rtol=1e-4, err_msg="nmf Q, spmd vs host")
+    same_wire("nmf reduce_scatter spmd", s_s, s_d)
+    log(f"nmf spmd: Q vs host max rel diff "
+        f"{float(np.max(np.abs(q_s - q_d) / np.abs(q_d))):.3e}, wire {s_s.wire_traffic()} "
+        "(== host)")
     if s_a.wire_traffic() != s_d.wire_traffic():
         raise AssertionError("nmf: auto and reduce_scatter wire traffic differ")
-    for p, q in ((p_a, q_a), (p_d, q_d)):
+    for p, q in ((p_a, q_a), (p_d, q_d), (p_s, q_s)):
         if p.shape != (NMF_ROWS, NMF_RANK) or q.shape != (NMF_RANK, NMF_COLS) or not (
                 np.all(np.isfinite(p)) and np.all(np.isfinite(q))):
             raise AssertionError("nmf: factors not finite or of the wrong shape")

@@ -4,7 +4,9 @@ Port of :mod:`repro.analytics.kmeans`.  Per iteration, each thread assigns
 its points to the nearest center (the ``kmeans_assign`` CUDA kernel with
 ``use_kernel=True``), builds per-cluster partial sums + counts, and ships
 them through the accumulator — the shared centers in DSM are then
-``sum / count``.
+``sum / count``.  One ``thread_proc`` serves both the host backend
+(DThreadPool + DAddAccumulator, the paper's programming model) and the SPMD
+backend (one STEP thread per mesh position).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import AccumMode, Session
+from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign, kmeans_assign_plain
 
@@ -48,11 +51,12 @@ def fit_reference(x, k: int, iters: int = 10, seed: int = 0, device=None):
 def fit(x, k: int, *, iters: int = 10, seed: int = 0,
         mode: Optional[AccumMode | str] = None, use_kernel: bool = False,
         session: Optional[Session] = None, backend: str = "host",
-        n_nodes: int = 2, threads_per_node: int = 2, device=None):
-    """Lloyd iterations through the Table-1 facade.  Returns
-    ``(centers, session)``."""
+        n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
+    """Lloyd iterations through the Table-1 facade; backend-agnostic.
+    Returns ``(centers, session)``."""
     sess = session or Session(backend=backend, n_nodes=n_nodes,
-                              threads_per_node=threads_per_node, device=device)
+                              threads_per_node=threads_per_node, mesh=mesh,
+                              device=device)
     rng = np.random.default_rng(seed)
     d = x.shape[1]
     centers = sess.def_global("centers", x[rng.choice(x.shape[0], k, replace=False)])
@@ -77,3 +81,30 @@ def fit(x, k: int, *, iters: int = 10, seed: int = 0,
 
     sess.run(thread_proc, data=(x,))
     return centers.get().cpu().numpy(), sess
+
+
+# ---------------------------------------------------------------------------
+# Deprecated pre-Session entry points
+# ---------------------------------------------------------------------------
+
+
+def fit_threads(x, k: int, *, n_nodes: int = 2, threads_per_node: int = 2,
+                iters: int = 10, seed: int = 0,
+                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
+                use_kernel: bool = False, device=None):
+    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
+    deprecated_entry("kmeans.fit_threads", 'kmeans.fit(backend="host")')
+    sess = Session(backend="host", n_nodes=n_nodes,
+                   threads_per_node=threads_per_node, accum_mode=mode, device=device)
+    centers, sess = fit(x, k, iters=iters, seed=seed, mode=mode,
+                        use_kernel=use_kernel, session=sess)
+    return centers, sess.store, sess.accumulator("partials")
+
+
+def fit_spmd(x, k: int, mesh, *, iters: int = 10, seed: int = 0,
+             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, device=None):
+    """Deprecated shim: ``fit(backend="spmd")``."""
+    deprecated_entry("kmeans.fit_spmd", 'kmeans.fit(backend="spmd")')
+    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
+    centers, _ = fit(x, k, iters=iters, seed=seed, mode=mode, session=sess)
+    return centers

@@ -4,7 +4,12 @@ Port of :mod:`repro.analytics.logreg`.  ``fit`` is a line-by-line port of the
 paper's ``slave_proc``: every working thread keeps a local ``theta``,
 computes the gradient over its partition (``LoadTrainPoint``), pushes it
 through the shared accumulator (a synchronisation point), and applies the
-accumulated global gradient from DSM.
+accumulated global gradient from DSM.  The *same* ``thread_proc`` runs on
+either substrate — ``backend="host"`` (DThreadPool + DAddAccumulator) or
+``backend="spmd"`` (one STEP thread per mesh position) — selected at
+``Session`` construction.
+
+``fit_threads`` / ``fit_spmd`` remain as deprecation shims over ``fit``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import AccumMode, Session
+from repro_torch.core.dsm import GlobalStore
+from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 
 
@@ -47,15 +54,16 @@ def fit_reference(x, y, iters: int = 10, lr: float = 1e-3, device=None):
 def fit(x, y, *, iters: int = 10, lr: float = 1e-3,
         mode: Optional[AccumMode | str] = None, k: Optional[int] = None,
         session: Optional[Session] = None, backend: str = "host",
-        n_nodes: int = 2, threads_per_node: int = 2, device=None):
-    """Paper §4.5 through the Table-1 facade.
+        n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
+    """Paper §4.5 through the Table-1 facade; backend-agnostic.
 
     ``mode="sparse"``/``"auto"`` compress the gradient to top-``k`` (index,
     value) pairs — ``k`` becomes the grad ref's declared budget.  Returns
     ``(theta, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
-                              threads_per_node=threads_per_node, device=device)
+                              threads_per_node=threads_per_node, mesh=mesh,
+                              device=device)
     d = x.shape[1]
     grad = sess.new_array("grad", (d,), sparse_k=k)
 
@@ -95,3 +103,31 @@ def fit_ssp(x, y, *, n_workers: int = 4, staleness: int = 1, iters: int = 10,
 
     sess.run(worker, data=(x, y), timeout=60)
     return theta.get().cpu().numpy(), clock
+
+
+# ---------------------------------------------------------------------------
+# Deprecated pre-Session entry points
+# ---------------------------------------------------------------------------
+
+
+def fit_threads(x, y, *, n_nodes: int = 2, threads_per_node: int = 2,
+                iters: int = 10, lr: float = 1e-3,
+                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
+                store: Optional[GlobalStore] = None, device=None):
+    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
+    deprecated_entry("logreg.fit_threads", 'logreg.fit(backend="host")')
+    sess = Session(backend="host", n_nodes=n_nodes,
+                   threads_per_node=threads_per_node, store=store,
+                   accum_mode=mode, device=device)
+    theta, sess = fit(x, y, iters=iters, lr=lr, mode=mode, session=sess)
+    return theta, sess.store, sess.accumulator("grad")
+
+
+def fit_spmd(x, y, mesh, *, iters: int = 10, lr: float = 1e-3,
+             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, k: int = 0,
+             device=None):
+    """Deprecated shim: ``fit(backend="spmd")``."""
+    deprecated_entry("logreg.fit_spmd", 'logreg.fit(backend="spmd")')
+    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
+    theta, _ = fit(x, y, iters=iters, lr=lr, mode=mode, k=k or None, session=sess)
+    return theta

@@ -6,7 +6,8 @@ needs two global reductions — numer = PᵀR (k×m) and gram = PᵀP (k×k) —
 which is precisely an accumulator workload: one round of k·m + k² floats.
 Under ``mode="auto"`` that round is dense on every iteration, so it is
 folded by the ``accumulate_blocked`` kernel.  The products are plain
-``torch.matmul``, as the JAX package leaves them to XLA.
+``torch.matmul``, as the JAX package leaves them to XLA.  One
+``thread_proc`` serves the host and the SPMD backend.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import AccumMode, Session
+from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 
 _EPS = 1e-9
@@ -62,13 +64,14 @@ def fit_reference(r, k: int, iters: int = 10, seed: int = 0, device=None):
 def fit(r, k: int, *, iters: int = 10, seed: int = 0,
         mode: Optional[AccumMode | str] = None,
         session: Optional[Session] = None, backend: str = "host",
-        n_nodes: int = 2, threads_per_node: int = 2, device=None):
-    """Lee–Seung updates through the Table-1 facade.
+        n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
+    """Lee–Seung updates through the Table-1 facade; backend-agnostic.
 
     Returns ``(p, q, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
-                              threads_per_node=threads_per_node, device=device)
+                              threads_per_node=threads_per_node, mesh=mesh,
+                              device=device)
     n, m = r.shape
     p_full0, q0 = _init(n, m, k, seed)
     Q = sess.def_global("Q", q0)
@@ -91,3 +94,30 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
     ps = sess.run(thread_proc, data=(r, p_full0))
     p_full = torch.cat([p.cpu() for p in ps]).numpy()
     return p_full, Q.get().cpu().numpy(), sess
+
+
+# ---------------------------------------------------------------------------
+# Deprecated pre-Session entry points
+# ---------------------------------------------------------------------------
+
+
+def fit_threads(r, k: int, *, n_nodes: int = 2, threads_per_node: int = 2,
+                iters: int = 10, seed: int = 0,
+                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
+                store=None, device=None):
+    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
+    deprecated_entry("nmf.fit_threads", 'nmf.fit(backend="host")')
+    sess = Session(backend="host", n_nodes=n_nodes,
+                   threads_per_node=threads_per_node, store=store,
+                   accum_mode=mode, device=device)
+    p, q, sess = fit(r, k, iters=iters, seed=seed, mode=mode, session=sess)
+    return p, q, sess.store, sess.accumulator("q_partials")
+
+
+def fit_spmd(r, k: int, mesh, *, iters: int = 10, seed: int = 0,
+             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, device=None):
+    """Deprecated shim: ``fit(backend="spmd")``."""
+    deprecated_entry("nmf.fit_spmd", 'nmf.fit(backend="spmd")')
+    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
+    p, q, _ = fit(r, k, iters=iters, seed=seed, mode=mode, session=sess)
+    return p, q

@@ -6,7 +6,7 @@ their out-edges and accumulates it (the paper: "communication cost is
 proportional to the number of vertices").  The accumulator's ``sparse`` /
 ``auto`` modes engage when the per-thread credit vector is sparse — graphs
 with concentrated out-degrees.  The out-degree vector rides along replicated
-(``broadcast=``).
+(``broadcast=``).  One ``thread_proc`` serves the host and the SPMD backend.
 
 The credits' scatter adds millions of terms into a few popular vertices.
 In fp32 (as the JAX package sums them) the order of the adds then moves the
@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import AccumMode, Session
+from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 
 DAMPING = 0.85
@@ -61,8 +62,8 @@ def fit_reference(edges, n_vertices: int, iters: int = 10, device=None):
 def fit(edges, n_vertices: int, *, iters: int = 10,
         mode: Optional[AccumMode | str] = AccumMode.AUTO, k: Optional[int] = None,
         session: Optional[Session] = None, backend: str = "host",
-        n_nodes: int = 2, threads_per_node: int = 2, device=None):
-    """Credit accumulation through the Table-1 facade.
+        n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
+    """Credit accumulation through the Table-1 facade; backend-agnostic.
 
     ``mode="auto"`` ships (index, value) pairs only on rounds where every
     thread's credit vector compresses losslessly under the budget ``k``
@@ -70,7 +71,8 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
     Returns ``(ranks, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
-                              threads_per_node=threads_per_node, device=device)
+                              threads_per_node=threads_per_node, mesh=mesh,
+                              device=device)
     edges_t = to_tensor(edges, sess.device)
     out_deg = _out_degree(edges_t[:, 0].long(), n_vertices)
     ranks = sess.def_global(
@@ -91,3 +93,30 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
 
     sess.run(thread_proc, data=(edges_t,), broadcast=(out_deg,))
     return ranks.get().cpu().numpy(), sess
+
+
+# ---------------------------------------------------------------------------
+# Deprecated pre-Session entry points
+# ---------------------------------------------------------------------------
+
+
+def fit_threads(edges, n_vertices: int, *, n_nodes: int = 2,
+                threads_per_node: int = 2, iters: int = 10,
+                mode: AccumMode | str = AccumMode.AUTO, device=None):
+    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
+    deprecated_entry("pagerank.fit_threads", 'pagerank.fit(backend="host")')
+    sess = Session(backend="host", n_nodes=n_nodes,
+                   threads_per_node=threads_per_node, accum_mode=mode, device=device)
+    ranks, sess = fit(edges, n_vertices, iters=iters, mode=mode, session=sess)
+    return ranks, sess.store, sess.accumulator("credits")
+
+
+def fit_spmd(edges, n_vertices: int, mesh, *, iters: int = 10,
+             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, k: int = 0,
+             device=None):
+    """Deprecated shim: ``fit(backend="spmd")``."""
+    deprecated_entry("pagerank.fit_spmd", 'pagerank.fit(backend="spmd")')
+    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
+    ranks, _ = fit(edges, n_vertices, iters=iters, mode=mode, k=k or None,
+                   session=sess)
+    return ranks

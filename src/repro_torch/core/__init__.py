@@ -1,11 +1,14 @@
 """STEP core on PyTorch: DSM, cache, sync, threads, accumulator, Session."""
 
 from repro_torch.core import telemetry
-from repro_torch.core.accumulator import AccumMode, DAddAccumulator
+from repro_torch.core.accumulator import (
+    AccumMode, DAddAccumulator, accumulate, accumulate_scatter, accumulate_tree)
 from repro_torch.core.addressing import AddressAllocator, make_address, ring_hash, split_address, watcher_node
 from repro_torch.core.cache import CacheStats, DSMCache
+from repro_torch.core.compat import Mesh, PartitionSpec, axis_index, axis_size, make_mesh, shard_map
 from repro_torch.core.dsm import GlobalStore, load_numpy_state
-from repro_torch.core.session import HostBackend, HostWorkerCtx, Session, SharedRef, WorkerCtx
+from repro_torch.core.session import (
+    Backend, HostBackend, HostWorkerCtx, Session, SharedRef, SpmdBackend, SpmdWorkerCtx, WorkerCtx)
 from repro_torch.core.shards import GlobalEntry, HashRing, OwnerHandle, Shard, ShardedStore
 from repro_torch.core.sparse import (
     SparsePairs,
@@ -21,17 +24,18 @@ from repro_torch.core.sparse import (
 )
 from repro_torch.core.sync import DBarrier, DSemaphore, SSPClock
 from repro_torch.core.telemetry import NULL_TRACER, Tracer, as_tracer
-from repro_torch.core.threads import DThread, DThreadPool, ThreadState
+from repro_torch.core.threads import DThread, DThreadPool, ThreadState, spmd_threads
 
 __all__ = [
-    "AccumMode", "AddressAllocator", "CacheStats", "DAddAccumulator", "DBarrier",
-    "DSMCache", "DSemaphore", "DThread", "DThreadPool", "GlobalEntry", "GlobalStore",
-    "HashRing", "HostBackend", "HostWorkerCtx", "NULL_TRACER", "OwnerHandle",
-    "SSPClock", "Session", "Shard", "ShardedStore", "SharedRef", "SparsePairs",
-    "ThreadState", "Tracer", "WorkerCtx", "as_tracer", "block_layout",
-    "blocked_topk_accumulate", "blocked_topk_sparsify", "default_auto_k", "densify",
-    "load_numpy_state", "make_address", "pair_capacity", "ring_hash",
-    "sparse_beneficial", "sparse_beneficial_batch", "split_address", "telemetry",
-    "topk_sparsify",
-    "watcher_node",
+    "AccumMode", "AddressAllocator", "Backend", "CacheStats", "DAddAccumulator",
+    "DBarrier", "DSMCache", "DSemaphore", "DThread", "DThreadPool", "GlobalEntry",
+    "GlobalStore", "HashRing", "HostBackend", "HostWorkerCtx", "Mesh", "NULL_TRACER",
+    "OwnerHandle", "PartitionSpec", "SSPClock", "Session", "Shard", "ShardedStore",
+    "SharedRef", "SparsePairs", "SpmdBackend", "SpmdWorkerCtx", "ThreadState",
+    "Tracer", "WorkerCtx", "accumulate", "accumulate_scatter", "accumulate_tree",
+    "as_tracer", "axis_index", "axis_size", "block_layout", "blocked_topk_accumulate",
+    "blocked_topk_sparsify", "default_auto_k", "densify", "load_numpy_state",
+    "make_address", "make_mesh", "pair_capacity", "ring_hash", "shard_map",
+    "sparse_beneficial", "sparse_beneficial_batch", "split_address", "spmd_threads",
+    "telemetry", "topk_sparsify", "watcher_node",
 ]

@@ -1,16 +1,27 @@
-"""DAddAccumulator — STEP §4.4/§5.2, host form, on tensors.
+"""DAddAccumulator — STEP §4.4/§5.2, in both its host form and its SPMD form.
 
 The paper's accumulator: N threads each split a local V-vector into M chunks;
 chunk *i* goes to node *i*, which reduces its chunk locally and writes it into
 the output shared array.  Total wire traffic drops from ``(2N+1)·V`` (send all
 vectors to one node, reduce, send the result back) to ``(N+1)·V``.
 
-Port of the host layer of :mod:`repro.core.accumulator`: the class with the
-paper's exact API (``Accumulate(local, len)`` blocking until all N threads
-contribute), used by the thread pool, which *accounts traffic per mode* so
-the ``(2N+1)·V → (N+1)·V`` claim is assertable in tests.  The SPMD
-collectives (``accumulate`` / ``accumulate_scatter``) wait for the SPMD slice
-(ROADMAP Queue 1 item 7).
+Port of :mod:`repro.core.accumulator`, on tensors.  Two layers:
+
+* **SPMD functions** (``accumulate`` / ``accumulate_scatter`` /
+  ``accumulate_tree``) — called inside a mesh position
+  (:mod:`repro_torch.core.compat`) by the SPMD backend.  Modes:
+  ``gather_all`` (strawman), ``reduce_scatter`` (paper: the owned chunk of
+  the sum, then an all_gather), ``hierarchical`` (paper §4.5: over
+  ``inner_axis``, then across ``outer_axis``), ``sparse`` (top-k pairs),
+  ``auto`` (paper's rule, lossless by construction).  A replicated result —
+  the dense sum, the densified pairs — is computed once for the group and
+  the same tensor handed to every position.  The JAX package's collective
+  never fuses, so neither does this one: a sparse round compresses once per
+  position and densifies once.
+* **DAddAccumulator** — the host-side class with the paper's exact API
+  (``Accumulate(local, len)`` blocking until all N threads contribute), used
+  by the thread pool, which *accounts traffic per mode* so the
+  ``(2N+1)·V → (N+1)·V`` claim is assertable in tests.
 
 Sparse contract: a contribution is compressed with
 :func:`~repro_torch.core.sparse.blocked_topk_sparsify` (or the whole round
@@ -23,7 +34,8 @@ it never changes results.
 Dense contract: the fixed dense modes keep an O(V) running sum, as the JAX
 package does; a buffered round (AUTO) that takes the dense branch is folded
 in arrival order by the ``accumulate_blocked`` kernel, bit-exact with that
-fold for float32.
+fold for float32.  The SPMD dense sums are collectives in the JAX package,
+not kernels, and stay plain sums here.
 """
 
 from __future__ import annotations
@@ -37,6 +49,9 @@ import torch
 
 from repro_torch.check import checker as stepcheck
 from repro_torch.core import telemetry
+from repro_torch.core.addressing import align_up
+from repro_torch.core.compat import (
+    all_gather, all_gather_reduce, axis_size, psum, psum_scatter, tree_map)
 from repro_torch.core.sparse import (
     DEFAULT_BLOCK,
     blocked_topk_accumulate,
@@ -44,6 +59,7 @@ from repro_torch.core.sparse import (
     default_auto_k,
     densify,
     pair_capacity,
+    sparse_beneficial,
     sparse_beneficial_batch,
 )
 from repro_torch.device import to_tensor
@@ -74,6 +90,119 @@ class AccumMode(str, Enum):
     HIERARCHICAL = "hierarchical"      # §4.5: combine per node, then across
     SPARSE = "sparse"                  # (index,value) pairs
     AUTO = "auto"                      # paper's auto rule
+
+
+# ---------------------------------------------------------------------------
+# SPMD layer (inside a mesh position: `axis` names are mesh axes)
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    n = x.shape[0]
+    target = align_up(n, multiple)
+    if target == n:
+        return x
+    return torch.cat([x, x.new_zeros((target - n, *x.shape[1:]))])
+
+
+def accumulate_scatter(x: torch.Tensor, axis) -> torch.Tensor:
+    """Reduce-scatter: this position's owned chunk of the global sum (``x``
+    padded to a multiple of the axis size).
+
+    This is the paper's "node i receives chunk i and reduces locally" —
+    the primitive behind ZeRO-1 (the owner then updates its optimizer shard).
+    """
+    xp = _pad_to(x, axis_size(axis))
+    return psum_scatter(xp, axis, scatter_dimension=0, tiled=True)
+
+
+def _gather_chunks(chunk: torch.Tensor, axis, orig_len: int) -> torch.Tensor:
+    full = all_gather(chunk, axis, axis=0, tiled=True)
+    return full[:orig_len] if full.shape[0] != orig_len else full
+
+
+def accumulate(
+    x: torch.Tensor,
+    axis,
+    mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
+    *,
+    inner_axis=None,
+    outer_axis=None,
+    k: Optional[int] = None,
+    with_branch: bool = False,
+):
+    """Sum `x` over mesh axis(es); every position receives the full result.
+
+    Must be called inside a mesh position.  `x` is the position's local
+    vector (leading dim = vector length).  The result is shared by every
+    position of the group: never write into it.
+
+    ``with_branch=True`` (``auto`` mode only) additionally returns the
+    globally-agreed branch decision as a bool — what the SPMD session
+    charges wire traffic by.
+    """
+    mode = AccumMode(mode)
+    if with_branch and mode != AccumMode.AUTO:
+        raise ValueError("with_branch reports the auto rule's runtime "
+                         f"decision; mode {mode.value!r} has no branch")
+    n = x.shape[0]
+
+    if mode == AccumMode.GATHER_ALL:
+        # strawman: everyone receives every vector, reduces locally (the one
+        # replicated sum is computed once for the group)
+        return all_gather_reduce(x, axis, lambda allv: allv.sum(0))
+
+    if mode == AccumMode.REDUCE_SCATTER:
+        chunk = accumulate_scatter(x, axis)
+        return _gather_chunks(chunk, axis, n)
+
+    if mode == AccumMode.HIERARCHICAL:
+        # paper §4.5: one combine inside the node (pod), then across nodes.
+        inner = inner_axis if inner_axis is not None else axis
+        chunk = accumulate_scatter(x, inner)                 # intra-pod RS
+        if outer_axis is not None:
+            chunk = psum(chunk, outer_axis)                  # cross-pod on 1/N of data
+        return _gather_chunks(chunk, inner, n)               # intra-pod AG
+
+    if mode == AccumMode.SPARSE:
+        if k is None:
+            raise ValueError("sparse mode needs a top-k budget k")
+        pairs = blocked_topk_sparsify(x, k)     # topk_compress, once per position
+        # all_gather of the pairs in axis-index order, densified once for the
+        # group: one sparse_scatter_add launch a round
+        return all_gather_reduce((pairs.idx, pairs.vals), axis,
+                                 lambda g: densify(g[0], g[1], n))
+
+    if mode == AccumMode.AUTO:
+        if k is None:
+            k = default_auto_k(n)
+        # the paper's rule must agree across positions: decide on the
+        # *global* benefit (all_gather of one flag each), read once
+        use_sparse = all_gather_reduce(sparse_beneficial(x, k), axis,
+                                       lambda oks: bool(oks.all()))
+        if use_sparse:
+            total = accumulate(x, axis, AccumMode.SPARSE, k=k)
+        else:
+            total = accumulate(x, axis, AccumMode.REDUCE_SCATTER)
+        return (total, use_sparse) if with_branch else total
+
+    raise ValueError(f"unknown accumulator mode: {mode}")
+
+
+def accumulate_tree(tree, axis, mode=AccumMode.REDUCE_SCATTER, **kw):
+    """Accumulate every leaf of a tree (each flattened to 1-D and restored)."""
+
+    def one(leaf):
+        flat = leaf.reshape(-1)
+        out = accumulate(flat, axis, mode, **kw)
+        return out.reshape(leaf.shape)
+
+    return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Host layer: the paper's class API with per-mode traffic accounting
+# ---------------------------------------------------------------------------
 
 
 class DAddAccumulator:

@@ -1,6 +1,6 @@
 """step.Session — the paper's Table 1 as ONE facade over DSM, threads and sync.
 
-Port of :mod:`repro.core.session`, host backend.  A :class:`Session` owns the
+Port of :mod:`repro.core.session`.  A :class:`Session` owns the
 :class:`~repro_torch.core.dsm.GlobalStore`, the directory-based DSM cache,
 the sync factories and the accumulator registry; shared data is declared
 through it and handled via typed :class:`SharedRef` handles::
@@ -16,10 +16,23 @@ through it and handled via typed :class:`SharedRef` handles::
 
     thetas = sess.run(thread_proc, data=(x, y))
 
-``backend="host"`` — :class:`HostBackend` — is the paper's programming model:
-``DThreadPool`` threads, blocking ``DAddAccumulator`` rounds, reads served
-through the write-invalidate DSM cache, barrier-based release.  The SPMD
-backend and ``lower()`` wait for the SPMD slice (ROADMAP Queue 1 item 7);
+and runs unchanged on either substrate, selected at construction:
+
+* ``backend="host"`` — :class:`HostBackend`: the paper's programming model.
+  ``DThreadPool`` threads, blocking ``DAddAccumulator`` rounds, reads served
+  through the write-invalidate DSM cache, barrier-based release.
+* ``backend="spmd"`` — :class:`SpmdBackend`: one STEP thread per position of
+  a mesh (:mod:`repro_torch.core.compat`), each a Python thread on the
+  session's device.  ``SharedRef.accumulate`` becomes the SPMD collective
+  (reduce-scatter / all-gather, sparse pairs), ``SharedRef.get``/``set``
+  touch the position's own copy of the shared values, and barriers are
+  implicit in the collectives.  Where the JAX package traces the program
+  once and runs it over the mesh, here each position runs ``thread_proc``
+  itself; the traffic accounting is charged by position 0 alone, so it
+  comes out once per collective, as the JAX package's trace-time accounting
+  does.  Its ``spmd.trace`` span has no counterpart (nothing is traced),
+  and ``lower()`` is a non-goal of the port (ROADMAP Queue 1 item 7).
+
 ``findings``, ``watchdog`` and ``openmetrics`` wait for step.check and
 step.obs (item 8).
 
@@ -35,8 +48,10 @@ the update from the accumulated total).
 from __future__ import annotations
 
 import threading
+import time
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
 import torch
 
@@ -44,8 +59,11 @@ from repro_torch import obs as stepobs
 from repro_torch.check import checker as stepcheck
 from repro_torch.core import telemetry
 from repro_torch.core.accumulator import AccumMode, DAddAccumulator
+from repro_torch.core.accumulator import accumulate as spmd_accumulate
 from repro_torch.core.cache import CacheStats, DSMCache
+from repro_torch.core.compat import Mesh, make_mesh, psum, run_positions
 from repro_torch.core.dsm import GlobalStore
+from repro_torch.core.sparse import default_auto_k, pair_capacity
 from repro_torch.core.sync import DBarrier, DSemaphore, SSPClock
 from repro_torch.core.threads import DThreadPool, ThreadState
 from repro_torch.data.pipeline import partition_rows
@@ -240,6 +258,87 @@ class HostWorkerCtx(WorkerCtx):
         return self.read(name)
 
 
+def _on_device(value, device: torch.device):
+    """A value to write into a position's shared values: a tensor on the
+    session's device, or a dict of them for a shared object."""
+    if isinstance(value, dict):
+        return {f: to_tensor(v, device) for f, v in value.items()}
+    return to_tensor(value, device)
+
+
+class SpmdWorkerCtx(WorkerCtx):
+    """One mesh position's view: its own copy of the shared values, taken
+    from the store at spawn; barriers are the collectives themselves.
+
+    Position 0 of the mesh is the *leader*: it alone charges the backend's
+    traffic and counts the ``spmd.*`` telemetry, so both come out once per
+    collective call, not once per position."""
+
+    def __init__(self, session: "Session", backend: "SpmdBackend", tid: int,
+                 values: Dict[str, Any], leader: bool):
+        super().__init__(session, tid, backend.n_threads, tid)
+        self._backend = backend
+        self.values = values
+        self._leader = leader
+        self._accum_repeat = 1   # the enclosing loops' trip counts, multiplied
+        self._first_trip = True  # in the first trip of every enclosing loop
+
+    # -- iteration: a Python loop with the JAX package's scan accounting -----
+
+    def fori(self, step: Callable, carry, iters: int):
+        iters = int(iters)
+        if iters <= 0:
+            return carry
+        trc = self._session.tracer
+        if self._leader and self._first_trip and telemetry.TRACING and trc.enabled:
+            # the JAX package counts a scan site once, when it traces it, and
+            # its trips as iters times the enclosing loops' trips
+            trc.count("spmd.scan_sites")
+            trc.count("spmd.scan_trips", iters * self._accum_repeat)
+        outer_repeat, outer_first = self._accum_repeat, self._first_trip
+        self._accum_repeat = outer_repeat * iters
+        try:
+            for i in range(iters):
+                self._first_trip = outer_first and i == 0
+                carry = step(i, carry)
+        finally:
+            self._accum_repeat, self._first_trip = outer_repeat, outer_first
+        return carry
+
+    # -- ref-op routing (the position's own values: `owner` has no transport
+    # to shortcut and is ignored) --------------------------------------------
+
+    def read(self, name: str, owner=None):
+        return self.values[name]
+
+    def write(self, name: str, value, owner=None) -> None:
+        self.values[name] = _on_device(value, self.device)
+
+    def inc(self, name: str, amount, owner=None):
+        # `Inc` is per-thread: N positions calling inc(a) advance the value
+        # by N·a, exactly as N atomic increments do on the host backend
+        total = psum(to_tensor(amount, self.device), self._backend.axis)
+        self.values[name] = self.values[name] + total
+        return self.values[name]
+
+    def accumulate(self, name: str, local, mode: AccumMode, k: Optional[int]):
+        vec = local if local.ndim else local[None]   # collectives want rank>=1
+        shard = self._session.store.shard_of(name)
+        took_sparse = False
+        if mode == AccumMode.AUTO:
+            total, took_sparse = spmd_accumulate(vec, self._backend.axis, mode,
+                                                 k=k, with_branch=True)
+        else:
+            total = spmd_accumulate(vec, self._backend.axis, mode, k=k)
+        if not local.ndim:
+            total = total[0]
+        self.values[name] = total
+        if self._leader:
+            self._backend.stats.account(mode, self.n_threads, int(local.numel()), k,
+                                        shard=shard, took_sparse=took_sparse)
+        return total
+
+
 def _warn_at_caller(message: str, category) -> None:
     """Warn with the first stack frame *outside this module* as the location."""
     import sys
@@ -251,14 +350,56 @@ def _warn_at_caller(message: str, category) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Backend
+# Backends
 # ---------------------------------------------------------------------------
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """Execution substrate behind a Session: place threads, run them, account
+    accumulator traffic.  Everything the facade asks of a backend is here; two
+    implementations ship: :class:`HostBackend` and :class:`SpmdBackend`."""
+
+    kind: str
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device the backend is fixed to, or None (the session's)."""
+
+    @property
+    def n_threads(self) -> int: ...
+
+    @property
+    def n_nodes(self) -> int: ...
+
+    def bind(self, session: "Session") -> None:
+        """Attach to a session whose store, device and tracer are set."""
+
+    def spawn(self, session: "Session", thread_proc: Callable,
+              data: Sequence, broadcast: Sequence) -> None: ...
+
+    def join(self, session: "Session", timeout: Optional[float]) -> List[Any]: ...
+
+    def accumulator(self, session: "Session", name: str,
+                    mode: Optional[AccumMode] = None, k: Optional[int] = None): ...
+
+    def kill_node(self, node_id: int) -> List[int]: ...
+
+    def healthy_nodes(self) -> List[int]: ...
+
+    def states(self) -> Dict[int, Any]: ...
+
+    def wire_traffic(self) -> int: ...
+
+    def shard_wire(self, store: GlobalStore) -> Dict[int, int]:
+        """Accumulator wire traffic by the shard owning each output ref."""
 
 
 class HostBackend:
     """The paper-faithful path: DThreadPool + blocking DAddAccumulator."""
 
     kind = "host"
+    device = None   # runs wherever the session's store lives
 
     def __init__(self, n_nodes: int = 2, threads_per_node: int = 2, *,
                  fused: bool = True):
@@ -278,6 +419,18 @@ class HostBackend:
     @property
     def n_nodes(self) -> int:
         return self.pool.n_nodes
+
+    def bind(self, session: "Session") -> None:
+        self.run_barrier.tracer = session.tracer
+
+    def kill_node(self, node_id: int) -> List[int]:
+        return self.pool.kill_node(node_id)
+
+    def healthy_nodes(self) -> List[int]:
+        return self.pool.healthy_nodes()
+
+    def states(self) -> Dict[int, Any]:
+        return self.pool.states()
 
     def accumulator(self, session: "Session", name: str,
                     mode: Optional[AccumMode] = None,
@@ -346,6 +499,187 @@ class HostBackend:
         with self._lock:
             return sum(a.bytes_transferred for a in self._accumulators.values())
 
+    def shard_wire(self, store: GlobalStore) -> Dict[int, int]:
+        out: Dict[int, int] = {}
+        with self._lock:
+            for (name, _, _), accu in self._accumulators.items():
+                sid = store.shard_of(name)
+                out[sid] = out.get(sid, 0) + accu.bytes_transferred
+        return out
+
+
+@dataclass
+class SpmdTraffic:
+    """Per-call traffic accounting for the SPMD accumulator, mirroring the
+    host accumulator's cost model, charged once per collective call (by the
+    mesh's leader position).  ``sparse`` is costed at its top-k budget;
+    ``auto`` at the branch the round took — the figure the JAX package
+    reaches by settling its trace-time dense bound at ``join``.
+
+    ``by_shard`` attributes each call's traffic to the shard owning the
+    output ref — the per-shard half of ``Session.shard_stats()``."""
+
+    bytes_transferred: int = 0
+    rounds: int = 0
+    by_shard: Dict[int, int] = field(default_factory=dict)
+
+    def account(self, mode: AccumMode, n: int, vec_len: int, k: Optional[int],
+                *, shard: Optional[int] = None, took_sparse: bool = False) -> None:
+        """Charge one round of an accumulate call.  ``vec_len`` is the total
+        element count of the local contribution (scalars cost 1, like the
+        host accumulator).
+
+        ``sparse`` ships ``pair_capacity(V, k)`` static (index, value) pairs
+        from each of the ``n`` positions and republishes ``V`` — the same
+        ``Σ 2·pairs + V`` as the host accumulator; ``auto`` with
+        ``took_sparse`` costs the same at its (default) budget, otherwise
+        the dense ``(n+1)·V``."""
+        if mode == AccumMode.AUTO and took_sparse:
+            k = k if k is not None else default_auto_k(vec_len)
+            mode = AccumMode.SPARSE
+        if mode == AccumMode.GATHER_ALL:
+            per_round = (2 * n + 1) * vec_len
+        elif mode == AccumMode.SPARSE:
+            per_round = 2 * pair_capacity(vec_len, k) * n + vec_len
+        else:  # REDUCE_SCATTER / HIERARCHICAL / AUTO's dense branch
+            per_round = (n + 1) * vec_len
+        self.bytes_transferred += per_round
+        if shard is not None:
+            self.by_shard[shard] = self.by_shard.get(shard, 0) + per_round
+        self.rounds += 1
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+class SpmdBackend:
+    """One STEP thread per mesh position, each a Python thread on the
+    session's device (:func:`~repro_torch.core.compat.run_positions`).
+
+    ``spawn`` records the program; ``join`` runs it, one position per
+    thread, then writes position 0's shared values back into the session's
+    store so the driver-side ``ref.get()`` sees the result exactly as it
+    does on the host backend.  Rows of ``data=`` split evenly over the
+    ``axis`` (ragged rows are dropped, with a warning); every ``broadcast=``
+    array goes whole to each position.  ``mesh=None`` is one position per
+    visible device of the session's device type (one on the CPU), fixed
+    when the session binds the backend.
+    """
+
+    kind = "spmd"
+
+    def __init__(self, mesh: Optional[Mesh] = None, axis: str = "data"):
+        if mesh is not None and axis not in mesh.axis_names:
+            raise ValueError(f"mesh has axes {mesh.axis_names}, no {axis!r}")
+        self.mesh = mesh
+        self.axis = axis
+        self.stats = SpmdTraffic()
+        self._pending = None
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return None if self.mesh is None else self.mesh.device
+
+    def bind(self, session: "Session") -> None:
+        """Fix the mesh on the session's device."""
+        device = session.device
+        if self.mesh is None:
+            count = torch.cuda.device_count() if device.type == "cuda" else 1
+            self.mesh = make_mesh((count,), (self.axis,), device)
+        elif self.mesh.device is not None and not _same_device(self.mesh.device, device):
+            raise ValueError(f"the mesh is on {self.mesh.device}, the session on {device}")
+
+    def _mesh(self) -> Mesh:
+        if self.mesh is None:
+            raise RuntimeError("SpmdBackend(mesh=None) has no mesh until a Session binds it")
+        return self.mesh
+
+    @property
+    def n_threads(self) -> int:
+        return int(self._mesh().shape[self.axis])
+
+    @property
+    def n_nodes(self) -> int:
+        return self.n_threads
+
+    def kill_node(self, node_id: int) -> List[int]:
+        raise RuntimeError("node-failure simulation needs the host backend")
+
+    def healthy_nodes(self) -> List[int]:
+        return list(range(self.n_nodes))
+
+    def states(self) -> Dict[int, Any]:
+        return {}
+
+    def accumulator(self, session: "Session", name: str,
+                    mode: Optional[AccumMode] = None,
+                    k: Optional[int] = None) -> SpmdTraffic:
+        """The traffic stats: every ref's collectives share them."""
+        return self.stats
+
+    def spawn(self, session: "Session", thread_proc: Callable,
+              data: Sequence, broadcast: Sequence) -> None:
+        if self._pending is not None:
+            raise RuntimeError("SPMD backend already has a spawned program; join() it first")
+        self._pending = (thread_proc, tuple(data), tuple(broadcast))
+
+    def join(self, session: "Session", timeout: Optional[float] = None) -> List[Any]:
+        if self._pending is None:
+            return []
+        thread_proc, data, broadcast = self._pending
+        self._pending = None
+        mesh, axis, n = self._mesh(), self.axis, self.n_threads
+        trc = session.tracer
+        tracing = telemetry.TRACING and trc.enabled
+        wire_before = self.stats.bytes_transferred
+        t0 = time.perf_counter() if tracing else 0.0
+        # an even split: trim ragged rows (the host backend gives the
+        # remainder to low tids instead; parity holds whenever n divides rows)
+        dropped = [int(a.shape[0] % n) for a in data]
+        if any(dropped):
+            _warn_at_caller(
+                f"SpmdBackend: dropping {sum(dropped)} ragged row(s) "
+                f"({dropped} per data array) so shard_map splits "
+                f"evenly across {n} threads; pad or trim row counts to a "
+                "multiple of n_threads for host/SPMD parity",
+                UserWarning)
+        data = tuple(a[: (a.shape[0] // n) * n] for a in data)
+        names = session.store.names()
+        shared0 = {m: session.store.get(m) for m in names}
+        rows = [a.shape[0] // n for a in data]
+
+        def position(linear: int):
+            tid = mesh.coords(linear)[axis]
+            shards = [a[tid * r:(tid + 1) * r] for a, r in zip(data, rows)]
+            ctx = SpmdWorkerCtx(session, self, tid, dict(shared0), linear == 0)
+            session._tls.ctx = ctx
+            try:
+                return thread_proc(ctx, *shards, *broadcast), ctx.values
+            finally:
+                session._tls.ctx = None
+
+        outs = run_positions(mesh, position, timeout)
+        for m in names:
+            session.store.set(m, outs[0][1][m])
+        # one result per position of the axis, in tid order (the positions
+        # off the axis repeat them)
+        out = [res for i, (res, _) in enumerate(outs)
+               if all(c == 0 for a, c in mesh.coords(i).items() if a != axis)]
+        if tracing:
+            trc.add_span("spmd", "spmd.execute", t0, time.perf_counter(),
+                         {"threads": n})
+            trc.count("spmd.joins")
+            trc.count("spmd.collective_elements",
+                      self.stats.bytes_transferred - wire_before)
+        return out
+
+    def wire_traffic(self) -> int:
+        return self.stats.bytes_transferred
+
+    def shard_wire(self, store: GlobalStore) -> Dict[int, int]:
+        return dict(self.stats.by_shard)
+
 
 # ---------------------------------------------------------------------------
 # The facade
@@ -358,12 +692,17 @@ class Session:
     Parameters
     ----------
     backend:
-        ``"host"`` or a :class:`HostBackend` instance.
+        ``"host"`` | ``"spmd"`` | a :class:`Backend` instance.
     n_nodes / threads_per_node:
-        Host-backend cluster shape.
+        Host-backend cluster shape (ignored for SPMD).
+    mesh / axis:
+        SPMD mesh (:func:`~repro_torch.core.compat.make_mesh`; defaults to
+        one position per visible device of the session's device type) and
+        the axis its threads run along.
     device:
         Where shared data and spawned datasets live; ``None`` is the card,
-        and raises on a host without a visible GPU.
+        and raises on a host without a visible GPU.  An adopted store's
+        device, or else an SPMD mesh's, wins when ``device`` is None.
     accum_mode:
         Default :class:`AccumMode` for ``SharedRef.accumulate``.
     store:
@@ -380,8 +719,9 @@ class Session:
         ``NotImplementedError`` until step.check, step.obs and tiers land.
     """
 
-    def __init__(self, backend: HostBackend | str = "host", *,
+    def __init__(self, backend: Backend | str = "host", *,
                  n_nodes: int = 2, threads_per_node: int = 2,
+                 mesh: Optional[Mesh] = None, axis: str = "data",
                  device=None,
                  store: Optional[GlobalStore] = None,
                  granularity: str = "coarse",
@@ -397,9 +737,7 @@ class Session:
             if backend == "host":
                 backend = HostBackend(n_nodes, threads_per_node)
             elif backend == "spmd":
-                raise NotImplementedError(
-                    "the SPMD backend is not ported yet (ROADMAP Queue 1 "
-                    "item 7); use backend='host'")
+                backend = SpmdBackend(mesh=mesh, axis=axis)
             else:
                 raise ValueError(f"backend must be host|spmd, got {backend!r}")
         self.backend = backend
@@ -413,16 +751,16 @@ class Session:
                                  f"store's {store.device}")
             self.store = store
         else:
-            self.store = GlobalStore(device, granularity=granularity,
-                                     shards=shards, cold_tier=cold_tier,
-                                     cold_budget=cold_budget)
+            self.store = GlobalStore(device if device is not None else backend.device,
+                                     granularity=granularity, shards=shards,
+                                     cold_tier=cold_tier, cold_budget=cold_budget)
         self.device = self.store.device
+        backend.bind(self)
         self.store.tracer = self.tracer
         self.accum_mode = AccumMode(accum_mode)
         self.cache = DSMCache(self.store, n_nodes=backend.n_nodes,
                               capacity=cache_capacity)
         self.cache.tracer = self.tracer
-        backend.run_barrier.tracer = self.tracer
         self._sparse_k: Dict[str, int] = {}  # per-ref default top-k budgets
         self._tls = threading.local()
 
@@ -503,20 +841,21 @@ class Session:
 
     def lower(self, thread_proc: Callable, *, data: Sequence = (),
               broadcast: Sequence = ()):
-        """Trace + lower ``thread_proc`` — an SPMD-backend feature."""
+        """Trace + lower ``thread_proc`` — XLA's program, which the port's
+        in-process mesh never builds."""
         raise NotImplementedError(
-            "Session.lower inspects the SPMD program; the SPMD backend is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
+            "Session.lower inspects an XLA-lowered program; the port's mesh "
+            "traces nothing, a non-goal recorded in ROADMAP Queue 1 item 7")
 
     def kill_node(self, node_id: int) -> List[int]:
-        """Simulate a node failure; returns lost tids."""
-        return self.backend.pool.kill_node(node_id)
+        """Simulate a node failure (host backend); returns lost tids."""
+        return self.backend.kill_node(node_id)
 
     def healthy_nodes(self) -> List[int]:
-        return self.backend.pool.healthy_nodes()
+        return self.backend.healthy_nodes()
 
     def thread_states(self) -> Dict[int, Any]:
-        return self.backend.pool.states()
+        return self.backend.states()
 
     # -- Table 1: synchronization ---------------------------------------------
 
@@ -539,7 +878,8 @@ class Session:
     # -- accumulator registry / stats -----------------------------------------
 
     def accumulator(self, name: str, mode: Optional[AccumMode | str] = None):
-        """The accumulator behind ``ref.accumulate``."""
+        """The accumulator behind ``ref.accumulate`` (host backend; the SPMD
+        backend's traffic stats otherwise)."""
         return self.backend.accumulator(self, name,
                                         AccumMode(mode) if mode else None)
 
@@ -601,10 +941,9 @@ class Session:
             sid: {"store": row, "cache": cache_rows.get(sid, CacheStats()),
                   "wire_traffic": 0}
             for sid, row in self.store.shard_stats().items()}
-        for (name, _, _), accu in self.backend._accumulators.items():
-            sid = self.store.shard_of(name)
+        for sid, elems in self.backend.shard_wire(self.store).items():
             if sid in out:
-                out[sid]["wire_traffic"] += accu.bytes_transferred
+                out[sid]["wire_traffic"] += elems
         return out
 
     # -- ref-op dispatch (driver vs active worker ctx) ------------------------
@@ -650,3 +989,9 @@ class Session:
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"Session(backend={self.backend.kind}, device={self.device}, "
                 f"threads={self.backend.n_threads}, names={self.names()})")
+
+
+def deprecated_entry(old: str, new: str) -> None:
+    """One-liner for the pre-Session entry points kept as shims."""
+    warnings.warn(f"{old} is deprecated; use {new}", DeprecationWarning,
+                  stacklevel=3)

@@ -4,8 +4,9 @@
 :class:`DThreadPool` plays the master — it places threads on logical *nodes*,
 starts them, joins them, and can kill a node to simulate failure.  State
 mirrors the paper (``GetState`` → alive/completed, plus ``lost`` after a
-simulated node failure).  The SPMD adapter (``spmd_threads``) waits for the
-SPMD slice (ROADMAP Queue 1 item 7).
+simulated node failure).  The SPMD adapter (:func:`spmd_threads`) runs one
+STEP thread per position of an in-process mesh
+(:mod:`repro_torch.core.compat`).
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from __future__ import annotations
 import threading
 import traceback
 from enum import Enum
-from typing import Any, Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence
+
+if TYPE_CHECKING:
+    from repro_torch.core.compat import Mesh
 
 
 class ThreadState(str, Enum):
@@ -127,3 +131,30 @@ class DThreadPool:
 
     def states(self) -> Dict[int, ThreadState]:
         return {t.tid: t.state for t in self.threads}
+
+
+# ---------------------------------------------------------------------------
+# SPMD adapter
+# ---------------------------------------------------------------------------
+
+
+def spmd_threads(
+    thread_proc: Callable,
+    mesh: Mesh,
+    axis_names: Sequence[str],
+    in_specs,
+    out_specs,
+):
+    """Run ``thread_proc(tid, *locals) -> outputs`` as one STEP thread per mesh
+    position over ``axis_names``, via :func:`~repro_torch.core.compat.shard_map`.
+
+    Inside, ``tid`` is the linearised mesh index over ``axis_names`` — the
+    distributed analogue of the paper's thread identifier argument.
+    """
+    # compat runs its positions on DThreads, so it imports this module
+    from repro_torch.core.compat import axis_index, shard_map
+
+    def body(*local_args):
+        return thread_proc(axis_index(tuple(axis_names)), *local_args)
+
+    return shard_map(body, mesh=mesh, in_specs=in_specs, out_specs=out_specs)

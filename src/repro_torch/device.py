@@ -33,7 +33,10 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
     keeps stored shapes, dtypes and wire-byte counts equal across the two
     packages.  A tensor already on ``device`` with a 32-bit type is returned
     as is (no copy).  A numpy array is never aliased: the caller may go on
-    mutating it, while stored values are treated as immutable."""
+    mutating it, while stored values are treated as immutable.  The SPMD
+    path leans on the same contract: every mesh position starts from the
+    store's tensors, and a collective's replicated result is one tensor
+    handed to every position, so nothing on that path writes in place."""
     borrowed = isinstance(value, np.ndarray)
     if isinstance(value, torch.Tensor):
         t = value

@@ -274,3 +274,32 @@ def test_scatter_add_kernel_bitexact_on_pairs(cuda, dtype, index_dtype, v, k, ro
     assert build.launch_counts()["sparse_scatter_add"] == before + 1
     assert got.dtype == dtype
     assert torch.equal(got, sparse_scatter_add_plain(idx, vals, v))
+
+
+@pytest.mark.cuda
+def test_spmd_sparse_round_launches_once_per_position_and_once_a_round(cuda):
+    """One SPARSE round of 4 SPMD mesh positions on the card: topk_compress
+    once per position, sparse_scatter_add once for the round (the densified
+    sum is computed once and shared), bit-exact with the round on the CPU."""
+    from repro_torch.core import Session, SpmdBackend, make_mesh
+
+    rows = np.random.default_rng(0).normal(size=(4, 4096)).astype(np.float32)
+
+    def run(device):
+        sess = Session(backend=SpmdBackend(mesh=make_mesh((4,), ("data",))), device=device)
+        out = sess.new_array("out", (4096,), sparse_k=1024)   # 256 a 1,024-lane block
+        res = sess.run(lambda ctx, xs: out.accumulate(xs[0], mode="sparse"), data=(rows,))
+        assert all(r is res[0] for r in res)
+        return out.get().cpu().numpy(), sess.wire_traffic()
+
+    build.reset_launches()
+    got, wire = run(cuda)
+    torch.cuda.synchronize()
+    launched = build.launch_counts()
+    assert launched.get("topk_compress_bitonic") == 4
+    assert launched.get("topk_compress_argmax", 0) == 0
+    assert launched.get("sparse_scatter_add") == 1
+    assert launched.get("fused_topk_scatter", 0) == 0
+    want, wire_cpu = run("cpu")
+    np.testing.assert_array_equal(got, want)
+    assert wire == wire_cpu == 4 * 2 * 1024 + 4096

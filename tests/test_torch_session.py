@@ -254,7 +254,7 @@ def test_tracing_spans_and_disable():
     assert telemetry.armed_count() == 0
 
 
-@pytest.mark.parametrize("kwargs", [dict(backend="spmd"), dict(check=True),
+@pytest.mark.parametrize("kwargs", [dict(check=True),
                                     dict(record=True), dict(cold_tier="host"),
                                     dict(cold_budget=1024)])
 def test_features_of_later_slices_raise(kwargs):
