@@ -67,7 +67,24 @@ Phases, in order; any failure raises and the run exits non-zero:
              must have been launched, the counts each run must give are
              asserted.  A small run of each app is also held against its
              single-thread reference on the CPU.
-5. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
+5. armed   — step.check and step.obs on the card: each app of phase 4 run
+             four times on phase 4's data, unarmed, then twice with
+             Session(check=True, record=True) (race detector, lock
+             sanitizer, spawn-time lint, flight recorder), then unarmed
+             again: pagerank AUTO (G; a Watchdog polls it every
+             50 ms, and its OpenMetrics page is printed) and SPARSE unfused on
+             the trimmed edges (C, H), logreg sparse fused (A) and unfused (B,
+             H), logreg sparse through the SPMD backend (B, H), kmeans with
+             the kernel (D, plus one launch a thread for the lint's dry run
+             of the round body) and nmf AUTO (G).  Each armed run must find
+             nothing, put the same elements on the wire as the unarmed run,
+             agree with it to the app tolerance and launch what the code
+             says; both walls and the overhead are printed, and nothing may
+             stay armed after.  Then three seeded defects on the card: the
+             race demo's lost update (both sites), a barrier-arity lint
+             (CheckError before any thread starts), a DBarrier under the
+             SPMD backend (spmd-host-sync).
+6. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
              their full published configs, random weights from a fixed
              generator, device left at its default: (a) make_prefill_step on
              4 x 2048 tokens, which must launch the kernel once per layer;
@@ -79,18 +96,20 @@ Phases, in order; any failure raises and the run exits non-zero:
              tokens and 32 generated.  Each model is freed before the next.
              Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
              kernel's bf16 body once per layer.
-6. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+7. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import os
 import re
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
@@ -100,8 +119,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import card_info  # noqa: E402
 from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
+from repro_torch.check import CheckError  # noqa: E402
+from repro_torch.check import checker as stepcheck  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import HostBackend, Session, SpmdBackend, make_mesh  # noqa: E402
+from repro_torch.core import HostBackend, Session, SpmdBackend, make_mesh, telemetry  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     kmeans_dataset, logreg_dataset, nmf_dataset, partition_rows, powerlaw_graph)
@@ -1089,6 +1110,9 @@ def a_timings(rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
+WALLS: dict = {}     # label -> wall seconds of run_app's last run under it
+
+
 def run_app(label: str, counts: dict, fn):
     """Run ``fn`` with every launch counter zeroed just before and read just
     after; add the run's launches to ``counts``.  Prints wall time and peak
@@ -1105,6 +1129,7 @@ def run_app(label: str, counts: dict, fn):
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    WALLS[label] = wall
     launched = build.launch_counts()
     for name, c in launched.items():
         counts[name] = counts.get(name, 0) + c
@@ -1270,7 +1295,8 @@ def kmeans_seed0_spread(x, labels) -> None:
         f"{COV_K}): max abs center diff {json.dumps(diff)}")
 
 
-def run_apps() -> dict:
+def run_apps(keep: dict) -> dict:
+    """Phase 4; ``keep`` receives each app's dataset for the armed phase."""
     counts: dict = {}
     small_reference_checks()
 
@@ -1329,6 +1355,7 @@ def run_apps() -> dict:
     log(f"pagerank sparse: wire {s_f.wire_traffic()} (fused == unfused), "
         f"rank sum auto {r_auto.sum():.6f} sparse {r_f.sum():.6f}")
     run_pagerank_spmd(edges, counts)
+    keep["edges"] = edges
     del edges
     bf16_sparse_round(np.random.default_rng(SEED), counts)
 
@@ -1364,6 +1391,7 @@ def run_apps() -> dict:
         f"{np.abs(c_k - c_p).max():.3e}, inertia {inertia_k:.3f} vs {inertia_p:.3f}")
     if c_k.shape != (COV_K, COV_FEATURES) or not np.all(np.isfinite(c_k)):
         raise AssertionError("kmeans: centers not finite or of the wrong shape")
+    keep["kmeans"] = (x, init_seed)
     del x
 
     # -- logreg, sparse gradients ---------------------------------------------
@@ -1393,6 +1421,7 @@ def run_apps() -> dict:
     same_wire("logreg sparse spmd", s_s, s_u)
     log(f"logreg spmd: theta vs host max abs diff {np.abs(th_s - th_u).max():.3e}, "
         f"wire {s_s.wire_traffic()} (== host)")
+    keep["logreg"] = (x, y)
     del x, y
 
     # -- nmf, Netflix's movie columns -----------------------------------------
@@ -1434,11 +1463,224 @@ def run_apps() -> dict:
     log(f"nmf: branch {modes}, wire {s_a.wire_traffic()} (auto == reduce_scatter), Q auto vs "
         f"reduce_scatter max rel diff {float(np.max(np.abs(q_a - q_d) / np.abs(q_d))):.3e}, "
         f"loss {loss0:.6g} -> {loss_a:.6g} (reference {loss_r:.6g})")
+    keep["nmf"] = r
     return counts
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the LM serving path at full width
+# Phase 5: the apps armed (step.check and step.obs on the card)
+# ---------------------------------------------------------------------------
+
+
+def armed_pair(label: str, counts: dict, make_backend, fit, expected: dict,
+               compare, watch: bool = False, lint_extra=None) -> str:
+    """``fit(session)`` four times on the same data, in the order unarmed,
+    armed (``check=True, record=True``), armed, unarmed, so that a drift
+    between runs cancels in the overhead.  Each unarmed run launches
+    ``expected``; each armed run launches ``expected`` plus ``lint_extra``
+    (what the lint's dry run launches), finds nothing, puts the same
+    elements on the wire as the first unarmed run, and ``compare(armed,
+    unarmed)`` holds its result to the app tolerance.  Prints the walls and the overhead (the armed runs' sum
+    over the unarmed runs'); with ``watch`` a Watchdog polls the first armed
+    run.  Returns the first armed session's OpenMetrics page."""
+    walls = {True: [], False: []}
+    page = None
+    for i, armed in enumerate((False, True, True, False)):
+        run = f"{label} {'armed' if armed else 'unarmed'} {i + 1}"
+        sess = Session(backend=make_backend(), check=armed or None, record=armed or None)
+        wd = sess.watchdog(interval_s=0.05) if watch and page is None and armed else None
+        if wd is not None:
+            wd.start()
+        try:
+            out, launched = run_app(run, counts, lambda: fit(sess))
+        finally:
+            if wd is not None:
+                wd.stop()
+        walls[armed].append(WALLS[run])
+        if i == 0:
+            out_u, wire_u = out, sess.wire_traffic()
+        extra = (lint_extra or {}) if armed else {}
+        expect_launches(run, launched, {name: n + extra.get(name, 0)
+                                        for name, n in expected.items()})
+        if not armed:
+            continue
+        found = sess.findings()
+        if found:
+            raise AssertionError(f"{run}: {len(found)} finding(s): "
+                                 f"{[f.as_dict() for f in found[:4]]}")
+        if sess.wire_traffic() != wire_u:
+            raise AssertionError(f"{run}: wire {sess.wire_traffic()} differs from "
+                                 f"the unarmed run's {wire_u}")
+        compare(out, out_u)
+        log(f"{run}: findings 0, benign replicated writes "
+            f"{sess.checker.benign_replicated}, wire {sess.wire_traffic()} (== unarmed), "
+            f"recorder ring {sess.metrics()['trace']['ring']}")
+        if wd is not None:
+            if wd.errors:
+                raise AssertionError(f"{run}: the watchdog's polls failed: {wd.errors[:3]}")
+            log(f"{run}: watchdog {wd.polls} polls at {wd.interval_s} s, anomalies "
+                f"{[a.as_dict() | {'dump': None} for a in wd.anomalies]}")
+        if page is None:
+            page = sess.openmetrics(anomalies=wd.anomalies if wd is not None else None)
+        sess.checker.disable()
+        sess.recorder.close()
+        if stepcheck.armed_count() or telemetry.armed_count():
+            raise AssertionError(f"{run}: armed after disable/close: {stepcheck.armed_count()} "
+                                 f"checker(s), {telemetry.armed_count()} tracer(s)")
+        del sess
+    log(f"armed {label}: walls unarmed {[round(w, 3) for w in walls[False]]} s, armed "
+        f"{[round(w, 3) for w in walls[True]]} s, overhead "
+        f"{100 * (sum(walls[True]) / sum(walls[False]) - 1):+.1f}%")
+    return page
+
+
+def seeded_defects() -> None:
+    """Three defects on the card, each found with the kinds the CPU tests
+    find: the race demo's lost update (both sites), a barrier-arity lint
+    raised before any thread starts, a DBarrier under the SPMD backend."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "torch_race_demo.py")
+    spec = importlib.util.spec_from_file_location("torch_race_demo", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    lines = open(path).read().splitlines()
+    sites = {f"{path}:{i}" for i, text in enumerate(lines, 1)
+             if "site A" in text or "site B" in text}
+    found = demo.main([])                     # on the card; asserts its own result
+    if {f.kind for f in found} != {"read-write", "write-write"} or not sites <= {
+            s for f in found for s in f.sites}:
+        raise AssertionError(f"race demo: {[f.as_dict() for f in found]}")
+    if not all(f.sites and f.tids == (0, 1) for f in found):
+        raise AssertionError("race demo: a finding without its sites or threads")
+    log(f"seeded race on the card: {sorted(f.kind for f in found)}, sites "
+        f"{sorted({s.rsplit('/', 1)[-1] for f in found for s in f.sites})}")
+
+    sess = Session(backend=HostBackend(N_NODES, THREADS_PER_NODE), check=True)
+    bar = sess.barrier(N_THREADS + 1)
+    entered = []
+
+    def arity(ctx):
+        entered.append(threading.current_thread())
+        bar.enter()
+
+    try:
+        sess.run(arity)
+        raise AssertionError("barrier arity: the lint let the program run")
+    except CheckError:
+        pass
+    kinds = [f.kind for f in sess.findings()]
+    sess.checker.disable()
+    if kinds != ["barrier-arity"] or len(entered) != N_THREADS or any(
+            t is not threading.current_thread() for t in entered) or sess.thread_states():
+        raise AssertionError(f"barrier arity: findings {kinds}, {len(entered)} dry runs, "
+                             f"threads {sess.thread_states()}")
+    log(f"seeded barrier-arity lint on the card: CheckError before any thread started, "
+        f"findings {kinds}, {len(entered)} dry runs on the driver thread")
+
+    sess = Session(backend=SpmdBackend(mesh=make_mesh((SPMD_POSITIONS,), ("data",))),
+                   check=True)
+    bar = sess.barrier()
+
+    def host_sync(ctx, xs):
+        bar.enter()
+        return xs.sum()
+
+    try:
+        sess.run(host_sync, data=(torch.ones(8, 2, device="cuda"),))
+        raise AssertionError("spmd host sync: the lint let the program run")
+    except CheckError:
+        pass
+    found = sess.findings()
+    sess.checker.disable()
+    if [f.kind for f in found] != ["spmd-host-sync"] or found[0].tids != tuple(
+            range(SPMD_POSITIONS)):
+        raise AssertionError(f"spmd host sync: {[f.as_dict() for f in found]}")
+    log(f"seeded DBarrier under SPMD on the card: findings ['spmd-host-sync'], "
+        f"positions {found[0].tids}")
+    if stepcheck.armed_count():
+        raise AssertionError("a seeded defect's checker stayed armed")
+
+
+def run_armed(keep: dict) -> dict:
+    """Each app armed at phase 4's scale beside its unarmed run on the same
+    data.  Launches per armed run, from the code: the accumulator's kernels
+    as unarmed (the lint's dry run ends each accumulate at LintCtx, which
+    launches nothing), plus what the dry run's one pass through each
+    thread's round body launches itself: kmeans' assignment (D) once a
+    thread; the other bodies launch no counted kernel."""
+    counts: dict = {}
+    edges = keep.pop("edges")
+    k = LJ_VERTICES // 4
+    page = armed_pair(
+        "pagerank auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
+        lambda s: pagerank.fit(edges, LJ_VERTICES, iters=ITERS, mode="auto", session=s)[0],
+        {"accumulate_blocked": ITERS, "fused_topk_scatter": 0},
+        lambda a, u: close(a, u, "pagerank auto armed vs unarmed"), watch=True)
+    lines = page.splitlines()
+    log(f"armed pagerank auto: OpenMetrics page, {len(lines)} lines; head: "
+        f"{json.dumps(lines[:12])}")
+    if not page.endswith("# EOF\n") or "step_trace_record_only 1" not in lines:
+        raise AssertionError("armed pagerank auto: the OpenMetrics page is malformed")
+    trimmed = edges[: edges.shape[0] - edges.shape[0] % SPMD_POSITIONS]
+    del edges
+    armed_pair(
+        "pagerank sparse unfused (trimmed edges)", counts,
+        lambda: HostBackend(N_NODES, THREADS_PER_NODE, fused=False),
+        lambda s: pagerank.fit(trimmed, LJ_VERTICES, iters=ITERS, mode="sparse", k=k,
+                               session=s)[0],
+        {"topk_compress_bitonic": ITERS * N_THREADS, "sparse_scatter_add": ITERS,
+         "fused_topk_scatter": 0},
+        lambda a, u: close(a, u, "pagerank sparse unfused armed vs unarmed"))
+    del trimmed
+
+    x, y = keep.pop("logreg")
+    for fused, expected in ((True, {"fused_topk_scatter": ITERS, "sparse_scatter_add": 0}),
+                            (False, {"topk_compress_argmax": ITERS * N_THREADS,
+                                     "sparse_scatter_add": ITERS, "fused_topk_scatter": 0})):
+        armed_pair(
+            f"logreg sparse {'fused' if fused else 'unfused'}", counts,
+            lambda: HostBackend(N_NODES, THREADS_PER_NODE, fused=fused),
+            lambda s: logreg.fit(x, y, iters=ITERS, lr=LR_STEP, mode="sparse", k=LR_K,
+                                 session=s)[0],
+            expected, lambda a, u: close(a, u, "logreg armed vs unarmed"))
+    # the SPMD backend: 4 positions as threads; the lint runs under the
+    # mesh's even split, the race detector sees no position (as in repro)
+    armed_pair(
+        "logreg sparse spmd", counts,
+        lambda: SpmdBackend(mesh=make_mesh((SPMD_POSITIONS,), ("data",))),
+        lambda s: logreg.fit(x, y, iters=ITERS, lr=LR_STEP, mode="sparse", k=LR_K,
+                             session=s)[0],
+        {"topk_compress_argmax": ITERS * SPMD_POSITIONS, "sparse_scatter_add": ITERS,
+         "fused_topk_scatter": 0},
+        lambda a, u: close(a, u, "logreg spmd armed vs unarmed"))
+    del x, y
+
+    x, init_seed = keep.pop("kmeans")
+    armed_pair(
+        "kmeans kernel", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
+        lambda s: kmeans.fit(x, COV_K, iters=ITERS, seed=init_seed, use_kernel=True,
+                             session=s)[0],
+        {"kmeans_assign": ITERS * N_THREADS},
+        lambda a, u: np.testing.assert_allclose(a, u, rtol=1e-4, atol=1e-5,
+                                                err_msg="kmeans armed vs unarmed"),
+        lint_extra={"kmeans_assign": N_THREADS})    # the dry run's pass, a thread
+    del x
+
+    r = keep.pop("nmf")
+    armed_pair(
+        "nmf auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
+        lambda s: nmf.fit(r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto",
+                          session=s)[1],
+        {"accumulate_blocked": ITERS},
+        lambda a, u: np.testing.assert_allclose(a, u, rtol=1e-4,
+                                                err_msg="nmf Q armed vs unarmed"))
+    del r
+    seeded_defects()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM serving path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1602,7 +1844,10 @@ def main() -> None:
             f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "
             f"graph replay {m.get('device_ms')} ms, library's {m.get('library_device_ms')} ms")
 
-    counts = run_apps()
+    keep: dict = {}
+    counts = run_apps(keep)
+    for name, n in run_armed(keep).items():
+        counts[name] = counts.get(name, 0) + n
     for name, n in run_lm().items():
         counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]

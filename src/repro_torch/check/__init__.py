@@ -1,5 +1,18 @@
-"""step.check for the port: only the disabled surface exists so far."""
+"""step.check — happens-before race detection, lock-order sanitizing, and a
+spawn-time lint pass for STEP programs (port of :mod:`repro.check`).
 
-from repro_torch.check.checker import CHECKING, NULL_CHECKER, Checker, as_checker
+Armed per session via ``Session(check=True)`` (or an explicit
+:class:`Checker`); disabled by default with a one-branch hot-path cost, the
+same contract as :mod:`repro_torch.core.telemetry`.
 
-__all__ = ["CHECKING", "NULL_CHECKER", "Checker", "as_checker"]
+``lint`` is deliberately not imported here: it pulls in ``repro_torch.core``
+and ``repro_torch.data`` lazily from inside the checker, keeping this package
+importable from the core modules that embed the hooks.
+"""
+
+from repro_torch.check.checker import (CHECKING, Checker, NULL_CHECKER, armed_count,
+                                       as_checker, reset)
+from repro_torch.check.findings import CheckError, Finding
+
+__all__ = ["CHECKING", "CheckError", "Checker", "Finding", "NULL_CHECKER",
+           "armed_count", "as_checker", "reset"]

@@ -374,6 +374,18 @@ class DAddAccumulator:
         a ``barrier-wait`` span for the time parked on the round barrier; the
         round-closing thread additionally records the ``accumulate.round``
         reduce span from :meth:`_reduce_round`."""
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled:
+            # publish this thread's clock into the round edge; the collective
+            # output write is recorded at the publish-time epoch after the
+            # round barrier releases, so peers' post-join clocks dominate it
+            token = ck.acc_begin(self)
+            self._accumulate_traced(local_vec)
+            ck.acc_done(self, self.output_name, token)
+            return
+        self._accumulate_traced(local_vec)
+
+    def _accumulate_traced(self, local_vec) -> None:
         trc = self.tracer
         if telemetry.TRACING and trc.enabled:
             t0 = time.perf_counter()

@@ -33,8 +33,10 @@ and runs unchanged on either substrate, selected at construction:
   does.  Its ``spmd.trace`` span has no counterpart (nothing is traced),
   and ``lower()`` is a non-goal of the port (ROADMAP Queue 1 item 7).
 
-``findings``, ``watchdog`` and ``openmetrics`` wait for step.check and
-step.obs (item 8).
+``check=True`` arms step.check (:mod:`repro_torch.check`) and
+``record=True`` step.obs's flight recorder (:mod:`repro_torch.obs`); both
+work on either backend, and the race detector sees the driver's and the host
+workers' accesses (never an SPMD position's, as in the JAX package).
 
 Everything a session holds lives on its ``device``: ``device=None`` is the
 card (see :func:`~repro_torch.device.resolve_device`), and ``spawn`` moves
@@ -47,12 +49,15 @@ the update from the accumulated total).
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 import warnings
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch import obs as stepobs
@@ -422,6 +427,8 @@ class HostBackend:
 
     def bind(self, session: "Session") -> None:
         self.run_barrier.tracer = session.tracer
+        self.run_barrier.checker = session.checker
+        session._watch_prims.add(self.run_barrier)
 
     def kill_node(self, node_id: int) -> List[int]:
         return self.pool.kill_node(node_id)
@@ -462,7 +469,8 @@ class HostBackend:
                 accu = DAddAccumulator(session.store, name, self.n_threads,
                                        self.n_nodes, mode, k=k,
                                        fused=self.fused,
-                                       tracer=session.tracer)
+                                       tracer=session.tracer,
+                                       checker=session.checker)
                 self._accumulators[key] = accu
             return accu
 
@@ -476,6 +484,11 @@ class HostBackend:
             ctx = HostWorkerCtx(session, self, tid)
             if telemetry.TRACING and session.tracer.enabled:
                 session.tracer.bind_thread(tid, ctx.node_id)
+            ck = session.checker
+            if stepcheck.CHECKING and ck.enabled:
+                # the worker's vector clock starts from the driver's spawn
+                # snapshot (the spawn happens-before edge)
+                ck.bind_thread(tid, ctx.node_id)
             session._tls.ctx = ctx
             try:
                 return thread_proc(ctx, *shards, *broadcast)
@@ -714,9 +727,25 @@ class Session:
         ``True`` arms a fresh :class:`~repro_torch.core.telemetry.Tracer`, a
         tracer is adopted as-is, ``None`` leaves tracing off.  A test that
         arms one disables it before returning.
-    check / record / cold_tier / cold_budget:
+    check:
+        step.check arming, the same contract: ``True`` arms a fresh
+        :class:`~repro_torch.check.Checker` (happens-before race detection,
+        lock-order sanitizing, and a spawn-time lint that rejects
+        structurally broken programs with
+        :class:`~repro_torch.check.CheckError`), a checker is adopted as-is,
+        and ``None`` leaves checking off at one-branch hot-path cost.
+        Inspect via ``session.checker`` / :meth:`findings`.  A caller that
+        arms one calls ``session.checker.disable()`` when done.
+    record:
+        step.obs flight-recorder arming, the same contract again: ``True``
+        arms a fresh :class:`~repro_torch.obs.FlightRecorder` (a bounded ring
+        of recent events; the tracer runs *record-only* unless ``trace``
+        armed it fully), a recorder is adopted as-is, ``None`` leaves
+        recording off.  Pair with :meth:`watchdog` and :meth:`openmetrics`;
+        call ``session.recorder.close()`` when done.
+    cold_tier / cold_budget:
         Accepted for signature parity; anything but ``None`` raises
-        ``NotImplementedError`` until step.check, step.obs and tiers land.
+        ``NotImplementedError`` until tiers land.
     """
 
     def __init__(self, backend: Backend | str = "host", *,
@@ -745,6 +774,9 @@ class Session:
         self.recorder = stepobs.as_recorder(record)
         self.tracer = telemetry.as_tracer(trace)
         self.recorder.attach(self.tracer)
+        # sync primitives handed out by this session, for the watchdog's
+        # scan of in-flight waits (weak: a dropped barrier unregisters itself)
+        self._watch_prims: "weakref.WeakSet" = weakref.WeakSet()
         if store is not None:
             if device is not None and resolve_device(device) != store.device:
                 raise ValueError(f"device {device} differs from the adopted "
@@ -757,10 +789,12 @@ class Session:
         self.device = self.store.device
         backend.bind(self)
         self.store.tracer = self.tracer
+        self.store.checker = self.checker
         self.accum_mode = AccumMode(accum_mode)
         self.cache = DSMCache(self.store, n_nodes=backend.n_nodes,
                               capacity=cache_capacity)
         self.cache.tracer = self.tracer
+        self.cache.checker = self.checker
         self._sparse_k: Dict[str, int] = {}  # per-ref default top-k budgets
         self._tls = threading.local()
 
@@ -772,7 +806,10 @@ class Session:
         ``sparse_k`` sets the ref's default top-k budget for sparse/auto
         accumulates."""
         self.store.def_global(name, value)
-        self._set_sparse_k(name, sparse_k)
+        self._set_sparse_k(name, sparse_k,
+                           size=None if sparse_k is None
+                           else value.numel() if isinstance(value, torch.Tensor)
+                           else math.prod(np.shape(value)))
         return SharedRef(self, name)
 
     def new_array(self, name: str, shape, dtype=torch.float32, *,
@@ -780,15 +817,23 @@ class Session:
         """``NewArray`` — allocate a zeroed shared array.  ``sparse_k`` is the
         ref's default top-k budget for sparse/auto accumulates."""
         self.store.new_array(name, shape, dtype)
-        self._set_sparse_k(name, sparse_k)
+        self._set_sparse_k(name, sparse_k,
+                           size=None if sparse_k is None
+                           else int(np.prod(shape, dtype=np.int64)) if shape else 1)
         return SharedRef(self, name)
 
-    def _set_sparse_k(self, name: str, sparse_k: Optional[int]) -> None:
+    def _set_sparse_k(self, name: str, sparse_k: Optional[int],
+                      size: Optional[int] = None) -> None:
         self._sparse_k.pop(name, None)  # re-declared names drop the old budget
         if sparse_k is not None:
             if sparse_k < 1:
                 raise ValueError(f"sparse_k must be >= 1, got {sparse_k}")
             self._sparse_k[name] = int(sparse_k)
+            ck = self.checker
+            if stepcheck.CHECKING and ck.enabled and size is not None:
+                # declaration-time lint: a budget the blocked pair layout
+                # cannot ship is silently lossier than asked
+                ck.lint_sparse_budget(name, int(size), int(sparse_k))
 
     def sparse_k(self, name: str) -> Optional[int]:
         """The ref's declared default top-k budget (None if unset)."""
@@ -812,6 +857,14 @@ class Session:
         """``DelArray`` / ``DelObj`` + coherence teardown: the store's delete
         hook (the cache's :meth:`DSMCache.drop`) purges every replica and
         directory record under the owning shard's lock."""
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled:
+            # advisory directory peek (no lock): a delete while nodes still
+            # hold replicas is legal but worth a lint warning — a concurrent
+            # reader of the deleted era may be mid-flight
+            holders = set(self.store.shard_for(name).directory.get(name, ()))
+            if holders:
+                ck.check_delete(name, holders)
         self.store.delete(name)
         self._sparse_k.pop(name, None)
 
@@ -827,11 +880,25 @@ class Session:
         """
         data = tuple(to_tensor(a, self.device) for a in data)
         broadcast = tuple(to_tensor(b, self.device) for b in broadcast)
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled:
+            # lint dry run first: a strict checker raises CheckError here, so
+            # a structurally broken program is rejected before any thread
+            # (or mesh position) exists
+            ck.lint_spawn(self, thread_proc, data, broadcast)
+            ck.on_spawn(self.backend.n_threads)
         self.backend.spawn(self, thread_proc, data, broadcast)
 
     def join(self, timeout: Optional[float] = None) -> List[Any]:
         """Join all threads; returns per-tid results."""
-        return self.backend.join(self, timeout)
+        try:
+            return self.backend.join(self, timeout)
+        finally:
+            ck = self.checker
+            if stepcheck.CHECKING and ck.enabled:
+                # the join happens-before edge: the driver's clock absorbs
+                # every worker's; the lock sanitizer's wait-for state resets
+                ck.after_join()
 
     def run(self, thread_proc: Callable, *, data: Sequence = (),
             broadcast: Sequence = (), timeout: Optional[float] = None) -> List[Any]:
@@ -863,16 +930,21 @@ class Session:
         """A counter barrier sized to the session's threads by default."""
         b = DBarrier(count or self.backend.n_threads)
         b.tracer = self.tracer
+        b.checker = self.checker
+        self._watch_prims.add(b)
         return b
 
     def semaphore(self, count: int = 1) -> DSemaphore:
         s = DSemaphore(count)
         s.tracer = self.tracer
+        s.checker = self.checker
+        self._watch_prims.add(s)
         return s
 
     def ssp_clock(self, staleness: int = 0, n_workers: Optional[int] = None) -> SSPClock:
         c = SSPClock(n_workers or self.backend.n_threads, staleness=staleness)
         c.tracer = self.tracer
+        c.checker = self.checker
         return c
 
     # -- accumulator registry / stats -----------------------------------------
@@ -888,15 +960,24 @@ class Session:
         return self.backend.wire_traffic()
 
     def findings(self) -> List[Any]:
-        raise NotImplementedError(
-            "Session.findings needs step.check, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        """Findings recorded by this session's checker (see step.check):
+        race/lock/lint :class:`~repro_torch.check.Finding` rows.  Empty unless
+        the session was built with ``check=True`` (or an armed checker)."""
+        return self.checker.findings()
 
-    def watchdog(self, **kwargs):
-        raise stepobs.not_ported("Session.watchdog")
+    def watchdog(self, **kwargs) -> "stepobs.Watchdog":
+        """A :class:`~repro_torch.obs.Watchdog` over this session, not
+        started: call ``.start()`` for the daemon thread or drive
+        ``poll_once()``.  Each anomaly carries a flight-recorder dump when
+        :attr:`recorder` is armed."""
+        return stepobs.Watchdog(self, **kwargs)
 
-    def openmetrics(self, *, prefix: str = "step", anomalies=None) -> str:
-        raise stepobs.not_ported("Session.openmetrics")
+    def openmetrics(self, *, prefix: str = "step",
+                    anomalies: Optional[Sequence[Any]] = None) -> str:
+        """:meth:`metrics` as OpenMetrics / Prometheus exposition text.  Pass
+        ``watchdog.anomalies`` to add the anomaly counters to the page."""
+        return stepobs.openmetrics(self.metrics(), prefix=prefix,
+                                   anomalies=anomalies)
 
     def stats(self) -> Dict[str, Any]:
         """Deprecated view: the original raw-counter triple; use
@@ -953,9 +1034,17 @@ class Session:
 
     def _read(self, name: str, owner=None):
         ctx = self._ctx()
-        if ctx is None:
-            return self.store.get(name, owner=owner)
-        return ctx.read(name, owner=owner)
+        value = (self.store.get(name, owner=owner) if ctx is None
+                 else ctx.read(name, owner=owner))
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled and (
+                ctx is None or type(ctx) is HostWorkerCtx):
+            # race detection sees host/driver accesses only, as in the JAX
+            # package: an SPMD position's refs are its own copies (ordered by
+            # the collective schedule, though here they are real threads)
+            # and the lint dry run's shadow ctx must stay invisible
+            ck.on_access(name, "read", value)
+        return value
 
     def _write(self, name: str, value, owner=None) -> None:
         ctx = self._ctx()
@@ -963,12 +1052,22 @@ class Session:
             self.store.set(name, value, owner=owner)
         else:
             ctx.write(name, value, owner=owner)
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled and (
+                ctx is None or type(ctx) is HostWorkerCtx):
+            ck.on_access(name, "write", value)
 
     def _inc(self, name: str, amount, owner=None):
         ctx = self._ctx()
-        if ctx is None:
-            return self.store.inc(name, amount, owner=owner)
-        return ctx.inc(name, amount, owner=owner)
+        result = (self.store.inc(name, amount, owner=owner) if ctx is None
+                  else ctx.inc(name, amount, owner=owner))
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled and (
+                ctx is None or type(ctx) is HostWorkerCtx):
+            # inc is atomic under the owning shard's lock: inc-inc pairs
+            # commute and are never racy; inc vs set/get still is
+            ck.on_access(name, "inc", result)
+        return result
 
     def _accumulate(self, name: str, local, mode, k):
         ctx = self._ctx()

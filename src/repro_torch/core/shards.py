@@ -187,6 +187,8 @@ class ShardedStore:
         self._delete_hooks: List[Any] = []
         # step.trace target; Session attaches its tracer here
         self.tracer = telemetry.NULL_TRACER
+        # step.check target: the lock-order sanitizer sees every shard/alloc
+        # acquisition through _lock_shard/_unlock_shard/_locked_alloc
         self.checker = stepcheck.NULL_CHECKER
 
     # -- topology -------------------------------------------------------------
@@ -197,6 +199,10 @@ class ShardedStore:
     def shard_of(self, name: str) -> int:
         """Owning shard id of ``name`` under the current ring."""
         return self._ring.owner(name)
+
+    def shard_for(self, name: str) -> Shard:
+        """Owning :class:`Shard` of ``name`` (lock NOT held)."""
+        return self._shards[self._ring.owner(name)]
 
     @property
     def ring_version(self) -> int:
@@ -219,15 +225,43 @@ class ShardedStore:
         return ring.owner(name)
 
     def _lock_shard(self, shard: Shard) -> None:
-        """Acquire a shard's lock, recording the wait when tracing is armed."""
+        """Acquire a shard's lock, recording the wait when tracing is armed
+        and the acquisition when a checker is."""
         trc = self.tracer
         if telemetry.TRACING and trc.enabled and not shard.lock._is_owned():
             t0 = time.perf_counter()
             shard.lock.acquire()
-            trc.observe("store.lock_wait", (time.perf_counter() - t0) * 1e6,
-                        shard=shard.id)
+            wait_us = (time.perf_counter() - t0) * 1e6
+            # record-only (an armed flight recorder) keeps true waits alone:
+            # uncontended sub-µs acquires are most acquisitions, and what
+            # the tracer spends on each is the recorder's armed overhead
+            if not trc.record_only or wait_us >= 1.0:
+                trc.observe("store.lock_wait", wait_us, shard=shard.id)
         else:
             shard.lock.acquire()
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled:
+            ck.lock_acquired(("shard", shard.id))
+
+    def _unlock_shard(self, shard: Shard) -> None:
+        shard.lock.release()
+        ck = self.checker
+        if stepcheck.CHECKING and ck.enabled:
+            ck.lock_released(("shard", shard.id))
+
+    @contextmanager
+    def _locked_alloc(self):
+        """The allocator lock, seen by the lock-order sanitizer as a leaf."""
+        with self._alloc_lock:
+            ck = self.checker
+            checking = stepcheck.CHECKING and ck.enabled
+            if checking:
+                ck.lock_acquired(("alloc", 0))
+            try:
+                yield
+            finally:
+                if checking:
+                    ck.lock_released(("alloc", 0))
 
     @contextmanager
     def locked_entry(self, name: str, owner: Optional[OwnerHandle] = None):
@@ -247,7 +281,7 @@ class ShardedStore:
                 if self._ring is ring:
                     raise KeyError(name)
             finally:
-                shard.lock.release()
+                self._unlock_shard(shard)
 
     @contextmanager
     def locked_owner(self, name: str, owner: Optional[OwnerHandle] = None):
@@ -262,7 +296,7 @@ class ShardedStore:
                     yield shard
                     return
             finally:
-                shard.lock.release()
+                self._unlock_shard(shard)
 
     # -- tier / migration views (single-tier, fixed ring until the ft slice) --
 
@@ -331,7 +365,7 @@ class ShardedStore:
     def def_global(self, name: str, value) -> str:
         """``DefGlobal(NAME, TYPE)`` — declare a shared variable and set it."""
         placed = self._place(value)
-        with self._alloc_lock:
+        with self._locked_alloc():
             slot = self._alloc.alloc_field(GLOBALS_OBJECT_ID,
                                            self._num_words(placed))
         self._install(name, slot, placed)
@@ -340,7 +374,7 @@ class ShardedStore:
     def new_array(self, name: str, shape, dtype=torch.float32) -> str:
         """``NewArray<TYPE>(n)`` — allocate a zeroed shared array."""
         placed = torch.zeros(shape, dtype=dtype, device=self.device)
-        with self._alloc_lock:
+        with self._locked_alloc():
             oid = self._alloc.new_object()
             slot = self._alloc.alloc_field(oid, self._num_words(placed))
         self._install(name, slot, placed)
@@ -350,7 +384,7 @@ class ShardedStore:
         """``NewObj`` — a shared object: a dict of fields under one object_id."""
         placed = {f: self._place(v) for f, v in fields.items()}
         words = sum(self._num_words(t) for t in placed.values())
-        with self._alloc_lock:
+        with self._locked_alloc():
             oid = self._alloc.new_object()
             slot = self._alloc.alloc_field(oid, words)
         self._install(name, slot, placed)
@@ -434,7 +468,7 @@ class ShardedStore:
                 shard.stats["transfers"] += 1
                 shard.stats["bytes_get"] += got_bytes
             finally:
-                shard.lock.release()
+                self._unlock_shard(shard)
         if tracing:
             t1 = time.perf_counter()
             trc.add_span("store-op", "store.mget", t0, t1,

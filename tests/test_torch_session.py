@@ -258,16 +258,38 @@ def test_tracing_spans_and_disable():
                                     dict(record=True), dict(cold_tier="host"),
                                     dict(cold_budget=1024)])
 def test_features_of_later_slices_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(device=CPU, **kwargs)
+    """step.check and step.obs are ported: check=True and record=True arm
+    (and disarm); the cold tiers still raise until their slice."""
+    from repro_torch.check import checker as stepcheck
+
+    if "check" in kwargs:
+        sess = Session(device=CPU, **kwargs)
+        assert sess.checker.enabled and stepcheck.armed_count() == 1
+        assert sess.findings() == []
+        sess.checker.disable()
+        assert stepcheck.armed_count() == 0
+    elif "record" in kwargs:
+        sess = Session(device=CPU, **kwargs)
+        assert sess.recorder.armed and sess.tracer.record_only
+        assert telemetry.armed_count() == 1
+        sess.recorder.close()
+        assert telemetry.armed_count() == 0
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Session(device=CPU, **kwargs)
 
 
 def test_session_methods_of_later_slices_raise():
+    """lower() stays a non-goal; findings, watchdog and openmetrics answer."""
+    from repro_torch.obs import Watchdog
+
     sess = _host()
-    for call in (lambda: sess.lower(lambda ctx: None), sess.findings,
-                 sess.watchdog, sess.openmetrics):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sess.lower(lambda ctx: None)
+    assert sess.findings() == []
+    assert isinstance(sess.watchdog(), Watchdog)
+    text = sess.openmetrics()
+    assert isinstance(text, str) and text.endswith("# EOF\n")
 
 
 def test_adopted_store_device_and_fused_backend():
