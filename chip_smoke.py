@@ -84,7 +84,34 @@ Phases, in order; any failure raises and the run exits non-zero:
              race demo's lost update (both sites), a barrier-arity lint
              (CheckError before any thread starts), a DBarrier under the
              SPMD backend (spmd-host-sync).
-6. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
+6. ft      — the tiered store, live rebalancing and ft/ on the card: (a) a
+             4-shard store with a host cold tier and half of its 2,048 x 1 MiB
+             fp32 entries (2 GiB) demoted, under 4 writer threads (set then
+             get, each read held on the card to the writer's latest value)
+             across add_shard(4) driven by migrate_step and remove_shard(1):
+             no stale or torn read, the moves those of the port's ring,
+             epochs equal to each writer's count of sets, hot + cold bytes
+             2 GiB, peak device memory within the hot budgets; the same with
+             a disk tier at 256 entries in a temporary directory under
+             build/; blocking copy rates, window_s, bytes_moved and the
+             worst op printed; (b) pagerank AUTO on phase 4's edges through
+             a store whose hot budget is below the rank vector, G once a
+             round, the same wire traffic as phase 4's untiered run and its
+             ranks within the app tolerance (the credits' fp64 atomics and
+             the arrival-order fold make no two runs bit-equal; whether
+             these are is printed), each payload loaded back from the tier
+             with the bits it left the card with, a Watchdog polling and
+             firing nothing; (c) the FT drill at Covertype scale: kmeans on
+             4 nodes x 1 thread over 4 shards, node 2 declared dead by the
+             HeartbeatMonitor (metrics_payload on the beats), recovered
+             single (3 x 2 threads) and multi (3 x 1), only shard 2's names
+             moved with their epochs, the recovered session's kmeans (D
+             once a thread a round) held to a fresh session of the same
+             shape; (d) kmeans' centers, pagerank's ranks, a bf16 leaf and
+             a sample of the points checkpointed from the card (once through
+             AsyncCheckpointer), restored by restore_checkpoint and
+             elastic_restore onto a 4-position mesh, bit-equal on the card.
+7. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
              their full published configs, random weights from a fixed
              generator, device left at its default: (a) make_prefill_step on
              4 x 2048 tokens, which must launch the kernel once per layer;
@@ -96,7 +123,7 @@ Phases, in order; any failure raises and the run exits non-zero:
              tokens and 32 generated.  Each model is freed before the next.
              Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
              kernel's bf16 body once per layer.
-7. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+8. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
 
@@ -109,6 +136,7 @@ import os
 import re
 import statistics
 import sys
+import tempfile
 import threading
 import time
 
@@ -123,9 +151,15 @@ from repro_torch.check import CheckError  # noqa: E402
 from repro_torch.check import checker as stepcheck  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import HostBackend, Session, SpmdBackend, make_mesh, telemetry  # noqa: E402
+from repro_torch.core.compat import P  # noqa: E402
+from repro_torch.core.shards import ShardedStore  # noqa: E402
+from repro_torch.core.tiers import DiskTier, HostMemTier  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     kmeans_dataset, logreg_dataset, nmf_dataset, partition_rows, powerlaw_graph)
+from repro_torch.ft import (  # noqa: E402
+    AsyncCheckpointer, HeartbeatMonitor, elastic_restore, metrics_payload, restore_checkpoint,
+    save_checkpoint, session_recovery)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.accumulate.kernel import accumulate_blocked  # noqa: E402
 from repro_torch.kernels.accumulate.ref import accumulate_plain  # noqa: E402
@@ -1334,6 +1368,7 @@ def run_apps(keep: dict) -> dict:
     close(r_auto, r_ref, "pagerank auto vs single-thread reference")
     rel = np.abs(r_auto - r_ref) / np.maximum(np.abs(r_ref), 1e-30)
     log(f"pagerank auto vs single-thread reference: max rel diff {rel.max():.3e}")
+    keep["pagerank_auto"] = (r_auto, s_auto.wire_traffic(), WALLS["pagerank auto"])
     k = LJ_VERTICES // 4
     (r_f, s_f), launched = run_app("pagerank sparse fused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(True)))
@@ -1392,6 +1427,7 @@ def run_apps(keep: dict) -> dict:
     if c_k.shape != (COV_K, COV_FEATURES) or not np.all(np.isfinite(c_k)):
         raise AssertionError("kmeans: centers not finite or of the wrong shape")
     keep["kmeans"] = (x, init_seed)
+    keep["kmeans_init_seed"] = init_seed
     del x
 
     # -- logreg, sparse gradients ---------------------------------------------
@@ -1609,7 +1645,7 @@ def run_armed(keep: dict) -> dict:
     thread's round body launches itself: kmeans' assignment (D) once a
     thread; the other bodies launch no counted kernel."""
     counts: dict = {}
-    edges = keep.pop("edges")
+    edges = keep["edges"]           # phase ft runs pagerank on them again
     k = LJ_VERTICES // 4
     page = armed_pair(
         "pagerank auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
@@ -1680,7 +1716,363 @@ def run_armed(keep: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the LM serving path at full width
+# Phase 6: ft — the tiered store under live rebalancing, pagerank through a
+# tiered store, the FT drill at Covertype scale, checkpoints on the card
+# ---------------------------------------------------------------------------
+
+MIB = 1 << 20
+TIER_SHARDS, TIER_THREADS = 4, 4
+# (a): 2,048 entries of 1 MiB fp32 under the host tier, 256 under the disk
+# tier; each shard's hot budget holds half of its share, so half goes cold
+TIER_RUNS = {"host": 2048, "disk": 256}
+
+
+class TimedTier:
+    """A cold tier wrapped to time each demotion's copy off the card and to
+    hold every payload to the bits it left with: a device-side checksum at
+    ``put``, the same checksum of the host payload at ``get``."""
+
+    def __init__(self, inner):
+        self.inner, self.kind = inner, inner.kind
+        self.put_s, self.put_bytes, self.sums = 0.0, 0, {}
+
+    @staticmethod
+    def _sum(t) -> int:
+        words = t.contiguous().view(torch.int32) if t.element_size() == 4 else \
+            t.contiguous().view(torch.int16).to(torch.int32)
+        return int(words.sum(dtype=torch.int64))
+
+    def put(self, name, value):
+        self.sums[name] = self._sum(value)
+        t0 = time.perf_counter()
+        nb = self.inner.put(name, value)         # the blocking device -> host copy
+        self.put_s += time.perf_counter() - t0
+        self.put_bytes += nb
+        return nb
+
+    def get(self, name):
+        payload = self.inner.get(name)
+        if self._sum(payload) != self.sums[name]:
+            raise AssertionError(f"cold tier: {name} came back with other bits")
+        return payload
+
+    def delete(self, name):
+        self.sums.pop(name, None)
+        self.inner.delete(name)
+
+    def stats(self):
+        return self.inner.stats()
+
+    def close(self):
+        self.inner.close()
+
+
+def copy_rates(n: int = 256) -> tuple:
+    """GB/s of blocking 1 MiB copies card -> pageable host memory and back,
+    the two copies a demotion and a promotion make."""
+    dev = torch.ones(MIB // 4, device="cuda")
+    host = [dev.to("cpu") for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dev.to("cpu")
+    d2h = n * MIB / (time.perf_counter() - t0) / 1e9
+    t0 = time.perf_counter()
+    for i in range(n):
+        host[i % 4].to("cuda")
+    torch.cuda.synchronize()
+    h2d = n * MIB / (time.perf_counter() - t0) / 1e9
+    return d2h, h2d
+
+
+def tiered_rebalance(kind: str, n_entries: int, root=None) -> None:
+    """(a): a 4-shard store on the card, half of it cold, under 4 writer
+    threads (one writer a name; each op sets a name and reads it back, then
+    reads the name half its list away, most often cold; each read held on
+    the card to the writer's latest value) across add_shard(4) driven by
+    migrate_step and then remove_shard(1)."""
+    budget = n_entries * MIB // 2 // TIER_SHARDS
+    tier = TimedTier(HostMemTier() if kind == "host" else DiskTier(root))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    store = ShardedStore(shards=TIER_SHARDS, cold_tier=tier, cold_budget=budget)
+    names = [f"blk{i:05d}" for i in range(n_entries)]
+    t0 = time.perf_counter()
+    for i, n in enumerate(names):
+        store.def_global(n, torch.full((MIB // 4,), float(i), device="cuda"))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    ts = store.tier_stats()
+    if ts["hot"]["bytes"] + ts["cold"]["bytes"] != n_entries * MIB or ts["cold_entries"] == 0:
+        raise AssertionError(f"tier {kind}: after the fill {ts}")
+    log(f"ft (a) {kind}: {n_entries} x 1 MiB fp32 on {TIER_SHARDS} shards, budget "
+        f"{budget // MIB} MiB a shard: filled in {fill_s:.3f} s, hot {ts['hot']['entries']} "
+        f"/ cold {ts['cold_entries']}, demotions {ts['demotions']}")
+    old_ring = store._ring
+    stop = threading.Event()
+    errors, records, sets = [], [], {}
+
+    def worker(t):
+        mine = names[t::TIER_THREADS]
+        latest = {n: float(names.index(n)) for n in mine}
+        count = dict.fromkeys(mine, 0)
+        k = 0
+        try:
+            while not stop.is_set():
+                n = mine[k % len(mine)]
+                far = mine[(k + len(mine) // 2) % len(mine)]
+                k += 1
+                t_op = time.perf_counter()
+                latest[n] += 1.0
+                store.set(n, torch.full((MIB // 4,), latest[n], device="cuda"))
+                count[n] += 1
+                for name in (n, far):
+                    got = store.get(name)
+                    if bool((got != latest[name]).any()):   # torn or stale, on the card
+                        errors.append(f"{name}: read {got.unique()[:4].tolist()}, "
+                                      f"wrote {latest[name]}")
+                records.append((t_op, time.perf_counter()))
+        except Exception as exc:  # surfaced below
+            errors.append(f"worker {t}: {exc!r}")
+        sets.update(count)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(TIER_THREADS)]
+    for th in threads:
+        th.start()
+    windows = []
+    try:
+        time.sleep(0.5)
+        totals0 = store.migration_totals()
+        t0 = time.perf_counter()
+        mig_add = store.add_shard(4, drain=False)
+        steps = 0
+        while store.migrate_step(8):
+            steps += 1
+        windows.append((t0, time.perf_counter()))
+        added = store.migration_totals()
+        new_ring = store._ring
+        t0 = time.perf_counter()
+        mig_rm = store.remove_shard(1)
+        windows.append((t0, time.perf_counter()))
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"tier {kind}: {errors[:4]}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    # moved: the names whose owner the join changed under the port's ring (a
+    # name a writer pulled before the planner listed its shard moved without
+    # a record); the leave moves exactly shard 1's names
+    changed = {n for n in names if old_ring.owner(n) != new_ring.owner(n)}
+    if not set(mig_add.moved) <= changed or \
+            added["entries_moved"] - totals0["entries_moved"] != len(changed):
+        raise AssertionError(f"tier {kind}: add_shard moved {len(mig_add.moved)} recorded, "
+                             f"{added['entries_moved'] - totals0['entries_moved']} in all, "
+                             f"{len(changed)} changed owner")
+    if set(mig_rm.moved) - {n for n in names if new_ring.owner(n) == 1}:
+        raise AssertionError(f"tier {kind}: remove_shard(1) moved names it did not own")
+    # epochs kept: each name's epoch is its writer's count of sets, exactly
+    if any(store.epoch(n) != sets[n] for n in names):
+        raise AssertionError(f"tier {kind}: an epoch differs from its writer's count of sets")
+    ts = store.tier_stats()
+    if ts["hot"]["bytes"] + ts["cold"]["bytes"] != n_entries * MIB:
+        raise AssertionError(f"tier {kind}: hot + cold bytes {ts['hot']['bytes']} + "
+                             f"{ts['cold']['bytes']} != {n_entries * MIB}")
+    if store.shard_ids() != [0, 2, 3, 4] or sorted(store.names()) != names:
+        raise AssertionError(f"tier {kind}: shards {store.shard_ids()}")
+    # the hot budget of each shard ever on the ring, one entry over it while
+    # a shard installs or promotes, and what each thread holds at once (the
+    # value it sets, the two it read back and the comparison's mask)
+    limit = 5 * (budget + MIB) + TIER_THREADS * 4 * MIB
+    if peak > limit:
+        raise AssertionError(f"tier {kind}: peak device memory {peak} > {limit}")
+    # an op's time while a window was open against the others'
+    during = [b - a for a, b in records if any(a < w1 and b > w0 for w0, w1 in windows)]
+    outside = [b - a for a, b in records if not any(a < w1 and b > w0 for w0, w1 in windows)]
+    d2h = tier.put_bytes / tier.put_s / 1e9 if tier.put_s else float("nan")
+    # a single-threaded sweep over cold names: each read promotes one entry
+    # (a copy to the card) and demotes another (a copy off it)
+    cold = [n for n in names if n in store._shards[store.shard_of(n)].cold][:128]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in cold:
+        store.get(n)
+    torch.cuda.synchronize()
+    swap = 2 * len(cold) * MIB / (time.perf_counter() - t0) / 1e9
+    log(f"ft (a) {kind}: {len(records)} ops by {TIER_THREADS} writers, no stale or torn read; "
+        f"add_shard(4) moved {added['entries_moved'] - totals0['entries_moved']} "
+        f"({len(mig_add.moved)} recorded, {mig_add.pulled} pulled by ops, {steps} steps of "
+        f"migrate_step(8)), window_s {mig_add.window_s:.4f}, bytes_moved {mig_add.bytes_moved}; "
+        f"remove_shard(1) moved {len(mig_rm.moved)}, window_s {mig_rm.window_s:.4f}, "
+        f"bytes_moved {mig_rm.bytes_moved}; demotions {ts['demotions']}, promotions "
+        f"{ts['promotions']}, hot {ts['hot']['bytes'] / 2**30:.3f} GiB + cold "
+        f"{ts['cold']['bytes'] / 2**30:.3f} GiB; demotions into the tier {d2h:.2f} GB/s "
+        f"(the copy off the card and the tier's own work), a promote + demote sweep "
+        f"{swap:.2f} GB/s both ways; ops (a set and two reads) while a window was open: "
+        f"{len(during)}, median {statistics.median(during) if during else float('nan'):.4f} s, "
+        f"worst {max(during, default=float('nan')):.4f} s; outside: {len(outside)}, median "
+        f"{statistics.median(outside):.4f} s, worst {max(outside):.4f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB (limit {limit / 2**30:.3f})")
+    tier.close()
+    del store
+
+
+def tiered_pagerank(edges, untiered, counts: dict):
+    """(b): pagerank AUTO on phase 4's edges through a store whose hot
+    budget is below the rank vector, so each round demotes and promotes;
+    a Watchdog polls the run."""
+    r_u, wire_u, wall_u = untiered
+    budget = LJ_VERTICES * 4 * 5 // 6        # below the rank vector (19.4 MB)
+    tier = TimedTier(HostMemTier())
+    sess = Session(n_nodes=N_NODES, threads_per_node=THREADS_PER_NODE,
+                   cold_tier=tier, cold_budget=budget)
+    wd = sess.watchdog(interval_s=0.05)
+    wd.start()
+    try:
+        (r_t, s_t), launched = run_app("pagerank auto tiered", counts, lambda: pagerank.fit(
+            edges, LJ_VERTICES, iters=ITERS, mode="auto", session=sess))
+    finally:
+        wd.stop()
+    expect_launches("pagerank auto tiered", launched, {"accumulate_blocked": ITERS,
+                                                       "fused_topk_scatter": 0})
+    if wd.errors or wd.anomalies:
+        raise AssertionError(f"pagerank tiered: watchdog {wd.errors[:2]} "
+                             f"{[a.kind for a in wd.anomalies]}")
+    if s_t.wire_traffic() != wire_u:
+        raise AssertionError(f"pagerank tiered: wire {s_t.wire_traffic()} != {wire_u}")
+    ts = sess.store.tier_stats()
+    # each round's Set of credits, then of ranks, finds its entry cold: it
+    # takes the tier slot back without loading (the value is overwritten)
+    # and demotes the other vector; only a read of a cold entry loads
+    if ts["demotions"] < 2 * ITERS or ts["cold_hits"] < 2 * ITERS:
+        raise AssertionError(f"pagerank tiered: not two demotions a round: {ts}")
+    close(r_t, r_u, "pagerank auto tiered vs untiered")
+    same = bool(np.array_equal(r_t, r_u))
+    log(f"ft (b) pagerank auto tiered (budget {budget // MIB} MiB, rank vector "
+        f"{LJ_VERTICES * 4 / 1e6:.1f} MB): wall {WALLS['pagerank auto tiered']:.3f} s vs "
+        f"untiered {wall_u:.3f} s, wire {s_t.wire_traffic()} (== untiered), bit-equal to the "
+        f"untiered run: {same}, max rel diff "
+        f"{float(np.max(np.abs(r_t - r_u) / np.maximum(np.abs(r_u), 1e-30))):.3e}; demotions "
+        f"{ts['demotions']} ({tier.put_bytes / 1e9:.2f} GB to the host at "
+        f"{tier.put_bytes / max(tier.put_s, 1e-9) / 1e9:.2f} GB/s), promotions that load "
+        f"{ts['promotions']}, cold hits {ts['cold_hits']}, each load back with its bits; "
+        f"watchdog {wd.polls} polls, no anomaly")
+    ranks = sess.ref("ranks").get()
+    tier.close()
+    return ranks
+
+
+def ft_drill(x, init_seed: int, counts: dict) -> tuple:
+    """(c): kmeans on 4 nodes x 1 thread over 4 shards, node 2 declared dead
+    by the heartbeat monitor, recovered single and multi; the recovered
+    session's kmeans against a fresh session of the survivors' shape."""
+    centers = None
+    for mode, tpn in (("single", 2), ("multi", 1)):
+        sess = Session(n_nodes=4, threads_per_node=1, shards=4)
+        for i in range(64):                 # the drill's own state, on every shard
+            sess.store.def_global(f"drill/state{i}", torch.full((256,), float(i), device="cuda"))
+        _, launched = run_app(f"ft kmeans before the failure ({mode})", counts, lambda: kmeans.fit(
+            x, COV_K, iters=1, seed=init_seed, use_kernel=True, session=sess))
+        expect_launches(f"ft kmeans before ({mode})", launched, {"kmeans_assign": 4})
+        failures = []
+        mon = HeartbeatMonitor(list(range(4)), timeout=10.0, on_failure=failures.append)
+        for node in range(4):
+            mon.beat(node, metrics_payload(sess))
+        mon.declare_dead(2)
+        if failures != [[2]] or mon.last_payload(2)["wire_traffic"] != sess.wire_traffic():
+            raise AssertionError(f"ft drill: failures {failures}")
+        names = sess.names()
+        owners = {n: sess.store.shard_of(n) for n in names}
+        epochs = {n: sess.store.epoch(n) for n in names}
+        t0 = time.perf_counter()
+        plan, recovered = session_recovery(sess, failures[0], mode=mode, threads_per_node=tpn)
+        recover_s = time.perf_counter() - t0
+        mig = plan.migration
+        if mig is None or set(mig.moved) != {n for n in names if owners[n] == 2} or any(
+                src != 2 for src, _ in mig.moved.values()) or any(
+                recovered.store.epoch(n) != epochs[n] for n in names):
+            raise AssertionError(f"ft drill ({mode}): migration {mig}")
+        (c_r, _), launched = run_app(f"ft kmeans recovered ({mode})", counts, lambda: kmeans.fit(
+            x, COV_K, iters=ITERS, seed=init_seed, use_kernel=True, session=recovered))
+        expect_launches(f"ft kmeans recovered ({mode})", launched,
+                        {"kmeans_assign": ITERS * 3 * tpn})
+        (c_f, _), _ = run_app(f"ft kmeans fresh 3 x {tpn}", counts, lambda: kmeans.fit(
+            x, COV_K, iters=ITERS, seed=init_seed, use_kernel=True,
+            session=Session(backend=HostBackend(3, tpn))))
+        np.testing.assert_allclose(c_r, c_f, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"ft kmeans recovered ({mode}) vs fresh")
+        log(f"ft (c) {mode}-node recovery in {recover_s:.4f} s: reassign {plan.reassignment}, "
+            f"ring moved {len(mig.moved)}/{mig.total_names} names off shard 2 (epochs kept, "
+            f"window_s {mig.window_s:.4f}), recovered 3 x {tpn} kmeans "
+            f"{WALLS[f'ft kmeans recovered ({mode})']:.3f} s vs fresh "
+            f"{WALLS[f'ft kmeans fresh 3 x {tpn}']:.3f} s, centers max abs diff "
+            f"{np.abs(c_r - c_f).max():.3e}")
+        centers = recovered.ref("centers").get()
+    return centers
+
+
+def ft_checkpoint(centers, ranks, sample, root: str) -> None:
+    """(d): kmeans' centers, pagerank's ranks, a bf16 leaf and a sample of
+    the points saved from the card (once through AsyncCheckpointer), then
+    restore_checkpoint and elastic_restore onto a 4-position mesh, each
+    bit-equal on the card."""
+    tree = {"kmeans": {"centers": centers, "sample": sample},
+            "pagerank": {"ranks": ranks, "ranks_bf16": ranks.to(torch.bfloat16)}}
+    t0 = time.perf_counter()
+    save_checkpoint(root, 1, tree)
+    save_s = time.perf_counter() - t0
+    saver = AsyncCheckpointer(root)
+    t0 = time.perf_counter()
+    saver.save(2, tree, extra={"iters": ITERS})
+    handed_s = time.perf_counter() - t0
+    saver.wait()
+    specs = {"kmeans": {"centers": P(), "sample": P("data", None)},
+             "pagerank": {"ranks": P(), "ranks_bf16": P()}}
+    mesh = make_mesh((SPMD_POSITIONS,), ("data",))
+    for step in (1, 2):
+        got, extra, _ = restore_checkpoint(root, tree, step=step)
+        again, _, _ = elastic_restore(root, tree, mesh, specs, step=step)
+        for restored in (got, again):
+            for group, leaves in tree.items():
+                for name, want in leaves.items():
+                    t = restored[group][name]
+                    if t.device.type != "cuda" or t.dtype != want.dtype or not torch.equal(t, want):
+                        raise AssertionError(f"ft checkpoint step {step}: {group}.{name}")
+    nbytes = sum(t.numel() * t.element_size() for g in tree.values() for t in g.values())
+    log(f"ft (d) checkpoint: {nbytes / 1e6:.1f} MB in 4 leaves (one bf16), saved in "
+        f"{save_s:.3f} s, AsyncCheckpointer handed back in {handed_s:.3f} s; "
+        f"restore_checkpoint and elastic_restore onto a {SPMD_POSITIONS}-position mesh "
+        f"bit-equal on the card; extra {extra}")
+
+
+def run_ft(keep: dict) -> dict:
+    """Phase 6 (ft): every run of it on the card, any failure raises."""
+    counts: dict = {}
+    d2h, h2d = copy_rates()
+    log(f"ft: blocking 1 MiB copies, card -> pageable host {d2h:.2f} GB/s, host -> card "
+        f"{h2d:.2f} GB/s")
+    tiered_rebalance("host", TIER_RUNS["host"])
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as spill:
+        tiered_rebalance("disk", TIER_RUNS["disk"], root=spill)
+    ranks = tiered_pagerank(keep.pop("edges"), keep.pop("pagerank_auto"), counts)
+    x, _, _ = kmeans_dataset(COV_ROWS, COV_FEATURES, COV_K, seed=SEED)
+    centers = ft_drill(x, keep.pop("kmeans_init_seed"), counts)
+    sample = torch.from_numpy(x[:4096]).cuda()
+    del x
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ft_checkpoint(centers, ranks, sample, root)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the LM serving path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1847,6 +2239,8 @@ def main() -> None:
     keep: dict = {}
     counts = run_apps(keep)
     for name, n in run_armed(keep).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in run_ft(keep).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in run_lm().items():
         counts[name] = counts.get(name, 0) + n

@@ -9,7 +9,8 @@ from repro_torch.core.compat import Mesh, PartitionSpec, axis_index, axis_size, 
 from repro_torch.core.dsm import GlobalStore, load_numpy_state
 from repro_torch.core.session import (
     Backend, HostBackend, HostWorkerCtx, Session, SharedRef, SpmdBackend, SpmdWorkerCtx, WorkerCtx)
-from repro_torch.core.shards import GlobalEntry, HashRing, OwnerHandle, Shard, ShardedStore
+from repro_torch.core.shards import (
+    GlobalEntry, HashRing, MigrationWindow, OwnerHandle, Shard, ShardedStore, ShardMigration)
 from repro_torch.core.sparse import (
     SparsePairs,
     block_layout,
@@ -24,13 +25,15 @@ from repro_torch.core.sparse import (
 )
 from repro_torch.core.sync import DBarrier, DSemaphore, SSPClock
 from repro_torch.core.telemetry import NULL_TRACER, Tracer, as_tracer
+from repro_torch.core.tiers import ColdTier, DiskTier, HostMemTier
 from repro_torch.core.threads import DThread, DThreadPool, ThreadState, spmd_threads
 
 __all__ = [
-    "AccumMode", "AddressAllocator", "Backend", "CacheStats", "DAddAccumulator",
-    "DBarrier", "DSMCache", "DSemaphore", "DThread", "DThreadPool", "GlobalEntry",
-    "GlobalStore", "HashRing", "HostBackend", "HostWorkerCtx", "Mesh", "NULL_TRACER",
-    "OwnerHandle", "PartitionSpec", "SSPClock", "Session", "Shard", "ShardedStore",
+    "AccumMode", "AddressAllocator", "Backend", "CacheStats", "ColdTier",
+    "DAddAccumulator", "DBarrier", "DSMCache", "DSemaphore", "DThread", "DThreadPool",
+    "DiskTier", "GlobalEntry", "GlobalStore", "HashRing", "HostBackend", "HostMemTier",
+    "HostWorkerCtx", "Mesh", "MigrationWindow", "NULL_TRACER", "OwnerHandle",
+    "PartitionSpec", "SSPClock", "Session", "Shard", "ShardMigration", "ShardedStore",
     "SharedRef", "SparsePairs", "SpmdBackend", "SpmdWorkerCtx", "ThreadState",
     "Tracer", "WorkerCtx", "accumulate", "accumulate_scatter", "accumulate_tree",
     "as_tracer", "axis_index", "axis_size", "block_layout", "blocked_topk_accumulate",

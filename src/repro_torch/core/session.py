@@ -744,8 +744,13 @@ class Session:
         recording off.  Pair with :meth:`watchdog` and :meth:`openmetrics`;
         call ``session.recorder.close()`` when done.
     cold_tier / cold_budget:
-        Accepted for signature parity; anything but ``None`` raises
-        ``NotImplementedError`` until tiers land.
+        step.tiers for a freshly built store (ignored when adopting
+        ``store``, whose tiering FT recovery keeps as is): ``cold_tier`` is
+        ``None`` (one tier, on the device), ``"host"`` (CPU tensors),
+        ``"disk"`` (pickled spill files in a temporary directory) or a
+        :class:`~repro_torch.core.tiers.ColdTier`; ``cold_budget`` caps each
+        shard's hot bytes, past which LRU entries demote to the cold tier
+        and promote back (epoch kept) on access.
     """
 
     def __init__(self, backend: Backend | str = "host", *,

@@ -13,8 +13,7 @@ Detectors (kind → trigger):
 ``stalled-migration``
     An open migration window (``store.migration_window``) made no progress
     (``entries_moved + pulled`` unchanged, pending nonempty) for
-    ``migration_deadline_s``.  The port's store opens none until its
-    rebalancing lands; the detector reads the store duck-typed meanwhile.
+    ``migration_deadline_s``.
 ``slow-barrier`` / ``slow-semaphore``
     Some thread has been waiting on a registered sync primitive longer than
     ``max(min_*_slo_us, slo_factor × p99)`` — the SLO is derived from the

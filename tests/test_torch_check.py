@@ -1,7 +1,7 @@
 """The port's step.check (``repro_torch.check``) against repro's.
 
-Mirrors ``tests/test_check.py`` case by case (the store-rebalancing and FT
-recovery cases wait for the port's rebalancing).  Each racy, lock or lint
+Mirrors ``tests/test_check.py`` case by case, the store's live rebalance
+and FT recovery's re-armed checker included.  Each racy, lock or lint
 program is written once, over ref handles and a package's array
 constructors, and run through a repro session and a port session: the
 findings (layer, kind, severity, name, tids and sites, which point at the
@@ -450,14 +450,108 @@ def test_correct_shard_then_node_order_clean():
 
 
 def test_rebalance_shard_pairs_must_be_sorted():
-    """The checker-level rule (locks.py is ported whole); the store-side
-    rebalance that takes such pairs comes with the port's rebalancing."""
+    """The checker-level rule, then its store-side callers: the
+    stop-the-world rebalance takes every shard lock in sorted order under
+    ``rebalance_begin``, a window's moves one sorted pair under
+    ``handoff_begin``; armed, neither gives a lock finding in either
+    package, and a descending pair taken by hand does."""
     steps = [("acquired", ("shard", 1)), ("acquired", ("shard", 2)),
              ("released", ("shard", 2)), ("released", ("shard", 1)),
              ("acquired", ("shard", 5)), ("acquired", ("shard", 4)),
              ("released", ("shard", 4)), ("released", ("shard", 5))]
     found = _both(lambda pkg: _lock_program(pkg, steps, rebalance=True))
     assert [f.kind for f in found] == ["rebalance-unsorted"]
+
+    def store_side(pkg):
+        sess = _host(pkg, n_nodes=2, tpn=1, shards=3)
+        for i in range(24):
+            sess.def_global(f"k{i}", pkg.f32(float(i)))
+        sess.store.add_shard(7, incremental=False)           # every lock, sorted
+        sess.store.remove_shard(1)                            # sorted pairs
+        sess.store.add_shard(9, drain=False)
+        sess.store.migrate_step(3)
+        sess.store.drain_window()
+        clean = [f for f in sess.findings() if f.layer == "lock"]
+        sess.checker.bind_thread(0)
+        sess.checker.handoff_begin()                          # a pair out of order
+        try:
+            sess.store._lock_shard(sess.store._shards[7])
+            sess.store._lock_shard(sess.store._shards[0])
+            sess.store._unlock_shard(sess.store._shards[0])
+            sess.store._unlock_shard(sess.store._shards[7])
+        finally:
+            sess.checker.handoff_end()
+        found = [f for f in sess.findings() if f.layer == "lock"]
+        sess.checker.disable()
+        return clean, [f.kind for f in found]
+
+    runs = {pkg.name: store_side(pkg) for pkg in (JAX, PORT)}
+    assert runs["repro_torch"] == runs["repro"] == ([], ["handoff-unsorted"])
+
+
+def test_live_rebalance_passes_sanitizer():
+    """A real add_shard migration takes its sorted shard-pair locks under
+    the rebalance exemption — armed, it gives no lock finding."""
+    def program(pkg):
+        sess = _host(pkg, n_nodes=2, tpn=1, shards=2)
+        for i in range(16):
+            sess.def_global(f"k{i}", pkg.f32(float(i)))
+        sess.store.add_shard(7)
+        found = [f for f in sess.findings() if f.layer == "lock"]
+        sess.checker.disable()
+        return found
+
+    assert _both(program) == []
+
+
+def test_tier_churn_is_no_write_to_the_race_detector():
+    """Port-only in spirit, run in both: threads that only read a shared
+    value while the hot budget demotes and promotes it give no finding —
+    a promotion is a new tensor with the same epoch and equal values."""
+    def program(pkg):
+        sess = _host(pkg, n_nodes=1, tpn=2, cold_tier="host", cold_budget=1024)
+        shared = sess.def_global("shared", pkg.ones(256))
+        pads = [sess.def_global(f"pad{t}", pkg.ones(256)) for t in range(2)]
+
+        def proc(ctx):
+            for _ in range(6):
+                shared.get()
+                pads[ctx.tid].get()
+
+        sess.run(proc)
+        tiers = sess.store.tier_stats()
+        found = sess.findings()
+        sess.checker.disable()
+        assert tiers["promotions"] > 0 and tiers["demotions"] > 0
+        return found
+
+    assert _both(program) == []
+
+
+def test_recovery_rearms_checker():
+    """session_recovery's replacement session adopts the armed checker:
+    the recovered run is checked, and clean, in both packages."""
+    def program(pkg):
+        from repro.ft import session_recovery as jrecover
+        from repro_torch.ft import session_recovery as trecover
+
+        recover = jrecover if pkg is JAX else trecover
+        sess = _host(pkg, n_nodes=2, tpn=1, shards=2)
+        ref = sess.new_array("w", (8,))
+
+        def proc(ctx, r):
+            r.accumulate(pkg.ones(8))
+
+        sess.run(lambda ctx: proc(ctx, ref))
+        plan, new_sess = recover(sess, [1])
+        assert new_sess.checker is sess.checker and new_sess.checker.enabled
+        ref2 = new_sess.ref("w")
+        new_sess.run(lambda ctx: proc(ctx, ref2))
+        found = new_sess.findings()
+        sess.checker.disable()
+        return found
+
+    assert _both(program) == []
 
 
 def test_shard_nesting_outside_rebalance_flagged():

@@ -23,7 +23,9 @@ def _one_torch_thread():
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py"))
+              + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path):
@@ -53,11 +55,13 @@ def test_port_files_exist():
           "launch/serve.py", "kernels/accumulate/ref.py", "kernels/accumulate/kernel.py",
           "kernels/accumulate/ops.py", "kernels/sparse_update/ref.py",
           "kernels/sparse_update/kernel.py", "kernels/sparse_update/ops.py",
-          "analytics/nmf.py"]
+          "analytics/nmf.py", "core/tiers.py", "utils/__init__.py", "utils/tree.py",
+          "ft/__init__.py", "ft/checkpoint.py", "ft/heartbeat.py", "ft/elastic.py"]
     missing = [f for f in lm if f"src/repro_torch/{f}" not in names]
     assert not missing, missing
     for source in ("flash_attention.cu", "ssd_scan.cu", "accumulate.cu", "scatter_add.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / source).is_file(), source
+    assert "examples/torch_fault_tolerance_drill.py" in names
     assert len(PORT_FILES) > 20
 
 
@@ -78,6 +82,7 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (resolve_device, Session, GlobalStore,
+                 lambda: Session(cold_tier="host", cold_budget=0),
                  lambda: kmeans.fit_reference([[0.0, 1.0], [1.0, 0.0]], 1, 1),
                  lambda: nmf.fit_reference(np.ones((2, 2), np.float32), 1, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):

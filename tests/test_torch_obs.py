@@ -1,15 +1,14 @@
 """The port's step.obs (``repro_torch.obs``) against repro's.
 
 Mirrors ``tests/test_obs.py`` case by case: the flight recorder over the
-port's tracer, the watchdog's detectors (the stalled migration window and
-tier thrash against a fake store, since the port's store has neither until
-its rebalancing and cold tiers land; heartbeats through a duck-typed
-monitor), the OpenMetrics export and step_top's render.  The export and the
-render must give the same bytes as repro's for one metrics dict, with and
-without anomalies and under a custom prefix.  The cases of the FT layer
-(session recovery, heartbeat payloads) and of an open migration window or a
-cold tier wait for those slices.  Every test leaves no tracer and no checker
-armed.
+port's tracer, the watchdog's detectors (a stalled migration window on a
+real store, tier thrash on a fake store as repro's test has it and on a real
+cold tier, heartbeats through the port's ``HeartbeatMonitor``), the FT layer
+(session recovery's flight dump, heartbeat payloads, metrics during an open
+migration window and with a cold tier), the OpenMetrics export and
+step_top's render.  The export and the render must give the same bytes as
+repro's for one metrics dict, with and without anomalies and under a custom
+prefix.  Every test leaves no tracer and no checker armed.
 """
 
 import importlib.util
@@ -316,13 +315,8 @@ def test_watchdog_sees_the_run_barrier_and_drops_dead_primitives():
 
 
 # ---------------------------------------------------------------------------
-# watchdog: remaining detectors (duck-typed sessions keep these deterministic)
+# watchdog: remaining detectors (fake sessions keep these deterministic, as in repro's)
 # ---------------------------------------------------------------------------
-
-
-class _FakeWindow:
-    def __init__(self, remaining):
-        self.entries_moved, self.pulled, self.remaining = 0, 0, remaining
 
 
 class _FakeStore:
@@ -343,43 +337,51 @@ class _FakeSession:
 
 
 def test_watchdog_detects_stalled_migration_window():
-    sess = _FakeSession(record=True)
+    sess = _host(shards=2, record=True)
     try:
-        sess.tracer.mark("migration", "window.open", pending=48)
-        sess.store.migration_window = win = _FakeWindow(remaining=48)
-        wd = Watchdog(sess, migration_deadline_s=0.15)
+        for i in range(48):
+            sess.new_array(f"mig{i}", (16,))
+        sess.store.add_shard(drain=False)           # seed the stall
+        win = sess.store.migration_window
+        assert win is not None and win.remaining > 0
+        wd = sess.watchdog(migration_deadline_s=0.15)
         assert wd.poll_once() == []                 # first poll: baseline
         fired = _poll_until(wd)
         assert fired, "stalled window not detected within deadline"
         a = fired[0]
         assert a.kind == "stalled-migration" and a.severity == "error"
-        assert a.details["remaining"] == 48
-        assert a.dump is not None
+        assert a.details["remaining"] == win.remaining > 0
+        assert a.dump is not None and a.dump["events"]
         assert any(e["name"] == "window.open" for e in a.dump["events"])
         assert json.loads(json.dumps(a.as_dict()))["kind"] == "stalled-migration"
-        win.entries_moved += 1                      # progress resets the clock
+        sess.store.migrate_step(1)                  # progress resets the clock
         wd._seen.clear()
         assert wd.poll_once() == []
-        sess.store.migration_window = None
-        assert wd.poll_once() == []
+        sess.store.drain_window()
+        assert sess.store.migration_window is None and wd.poll_once() == []
     finally:
+        sess.store.drain_window()
         sess.recorder.close()
 
 
 def test_watchdog_dump_dir_writes_anomaly_files(tmp_path):
-    sess = _FakeSession(record=True)
+    sess = _host(record=True)
     try:
-        sess.store.migration_window = _FakeWindow(remaining=5)
-        wd = Watchdog(sess, migration_deadline_s=0.05, dump_dir=str(tmp_path))
+        for i in range(48):
+            sess.new_array(f"dd{i}", (8,))
+        sess.store.add_shard(drain=False)
+        wd = sess.watchdog(migration_deadline_s=0.05, dump_dir=str(tmp_path))
         wd.poll_once()
         time.sleep(0.1)
         fired = wd.poll_once()
         assert fired
         path = fired[0].details["dump_path"]
+        assert os.path.exists(path)
         data = json.load(open(path))
         assert data["kind"] == "stalled-migration"
         assert data["dump"]["events"]               # the anomaly mark
     finally:
+        sess.store.drain_window()
         sess.recorder.close()
 
 
@@ -393,6 +395,27 @@ def test_watchdog_tier_thrash():
     assert fired[0].details["promotions"] == 40
     # one-sided movement (a legitimate spill) is NOT thrash
     sess.store._tiers = {"promotions": 40, "demotions": 138}
+    assert wd.poll_once() == []
+
+
+def test_watchdog_tier_thrash_on_a_real_cold_tier():
+    """Reads cycling over more entries than the hot budget holds: each read
+    promotes one entry and demotes another, and the watchdog calls it
+    thrash; a one-sided spill of fresh declarations is not."""
+    sess = _host(cold_tier="host", cold_budget=4 * 1024)
+    refs = [sess.new_array(f"tt{i}", (256,)) for i in range(8)]   # 1 KiB each
+    wd = sess.watchdog(thrash_min_moves=16, cooldown_s=0.0)
+    assert wd.poll_once() == []                     # baseline: the spill
+    for _ in range(4):
+        for r in refs:
+            r.get()
+    fired = wd.poll_once()
+    tiers = sess.store.tier_stats()
+    assert [a.kind for a in fired] == ["tier-thrash"], tiers
+    assert fired[0].details["promotions"] >= 16
+    assert tiers["hot"]["bytes"] <= 4 * 1024 and tiers["cold_entries"] == 4
+    for i in range(8, 24):                          # new names only spill
+        sess.new_array(f"tt{i}", (256,))
     assert wd.poll_once() == []
 
 
@@ -442,25 +465,17 @@ def test_watchdog_daemon_keeps_a_failed_poll():
 
 
 def test_watchdog_heartbeat_escalation():
-    """A duck-typed monitor (the JAX package's HeartbeatMonitor surface):
-    each dead node fires before the monitor's own on_failure runs."""
-
-    class _Monitor:
-        def __init__(self, on_failure):
-            self.on_failure = on_failure
-
-        def last_payload(self, node_id):
-            return {"node": node_id, "record_armed": True}
-
-        def declare_dead(self, node_id):
-            self.on_failure([node_id])
+    """The port's HeartbeatMonitor, beating metrics_payload: each dead node
+    fires before the monitor's own on_failure runs."""
+    from repro_torch.ft import HeartbeatMonitor, metrics_payload
 
     sess = _host(record=True)
     try:
         recovered = []
-        mon = _Monitor(recovered.append)
+        mon = HeartbeatMonitor([0, 1], timeout=10.0, on_failure=recovered.append)
         wd = sess.watchdog()
         assert wd.watch_heartbeats(mon) is mon
+        mon.beat(1, metrics_payload(sess))
         mon.declare_dead(1)
         assert recovered == [[1]]                   # original callback ran
         assert [a.kind for a in wd.anomalies] == ["dead-heartbeat"]
@@ -470,6 +485,115 @@ def test_watchdog_heartbeat_escalation():
         assert a.dump is not None
     finally:
         sess.recorder.close()
+
+
+def test_session_recovery_attaches_flight_dump():
+    from repro_torch.ft import session_recovery
+
+    sess = _host(n_nodes=2, threads_per_node=1, record=True)
+    new_sess = None
+    try:
+        sess.new_array("theta", (16,)).set(torch.zeros(16))
+        plan, new_sess = session_recovery(sess, [1])
+        assert plan.flight_dump is not None
+        assert plan.flight_dump["reason"] == "session-recovery"
+        assert any(e["name"] == "session_recovery" for e in plan.flight_dump["events"])
+        json.dumps(plan.flight_dump)
+        assert new_sess.recorder is sess.recorder and new_sess.recorder.armed
+    finally:
+        (new_sess or sess).recorder.close()
+    assert telemetry.armed_count() == 0
+
+
+def test_session_recovery_without_recorder_has_no_dump():
+    from repro_torch.ft import session_recovery
+
+    sess = _host(n_nodes=2, threads_per_node=1)
+    plan, new_sess = session_recovery(sess, [1])
+    assert plan.flight_dump is None
+    assert not new_sess.recorder.armed
+
+
+def test_metrics_payload_keys_pinned():
+    from repro.ft import metrics_payload as jmetrics_payload
+    from repro_torch.ft import PAYLOAD_KEYS, REBALANCE_KEYS, metrics_payload
+
+    sess = _host(shards=2)
+    payload = metrics_payload(sess)
+    assert tuple(payload.keys()) == PAYLOAD_KEYS
+    assert tuple(payload["rebalance"].keys()) == REBALANCE_KEYS
+    assert payload["trace_enabled"] is False and payload["record_armed"] is False
+    assert payload["rebalance"]["windows"] == 0 and payload["rebalance"]["open"] is False
+    assert payload == jmetrics_payload(JSession(backend="host", shards=2))
+
+
+def test_metrics_payload_rebalance_keys_without_migration_support():
+    from repro_torch.ft import REBALANCE_KEYS, metrics_payload
+
+    class _BareStore:                      # no migration_totals at all
+        pass
+
+    class _BareSession:
+        store = _BareStore()
+        tracer = Tracer(enabled=False)
+        recorder = None
+
+        def wire_traffic(self):
+            return 0
+
+    payload = metrics_payload(_BareSession())
+    assert tuple(payload["rebalance"].keys()) == REBALANCE_KEYS
+    assert payload["rebalance"]["pending"] == 0
+
+
+def test_metrics_concurrent_with_open_migration_window():
+    sess = _host(shards=4, trace=True)
+    try:
+        for i in range(64):
+            sess.new_array(f"cw{i}", (32,))
+        sess.store.add_shard(drain=False)
+        assert sess.store.migration_window is not None
+        moved_seq, errors = [], []
+
+        def poller():
+            try:
+                for _ in range(200):
+                    m = sess.metrics()
+                    mig = m["tiers"]["migration"]
+                    moved_seq.append((mig["entries_moved"], mig["pulled"]))
+                    assert isinstance(m["shards"], dict)
+            except Exception as e:  # pragma: no cover - the failure signal
+                errors.append(e)
+
+        t = threading.Thread(target=poller)
+        t.start()
+        while sess.store.migration_window is not None:
+            sess.store.migrate_step(2)              # drain concurrently
+        t.join(timeout=30)
+        assert not t.is_alive() and not errors, errors[:1]
+        assert moved_seq == sorted(moved_seq)       # monotonic across the drain
+        m = sess.metrics()
+        assert m["tiers"]["migration"]["open"] is False
+        assert m["tiers"]["migration"]["entries_moved"] >= 1
+    finally:
+        sess.tracer.disable()
+
+
+def test_metrics_tiers_section_with_cold_tier():
+    """The hot budget is per shard: 1 KiB holds one 256-float entry, so a
+    shard owning two or more names has spilled; the section equals repro's
+    for the same ops."""
+    tiers = []
+    for sess, arr in ((_host(shards=2, cold_tier="host", cold_budget=1 << 10), torch.ones),
+                      (JSession(backend="host", shards=2, cold_tier="host",
+                                cold_budget=1 << 10), jnp.ones)):
+        for i in range(8):
+            sess.new_array(f"tz{i}", (256,)).set(arr(256))
+        tiers.append(sess.metrics()["tiers"])
+    assert tiers[0]["kind"] == "host"
+    assert tiers[0]["demotions"] >= 1 and tiers[0]["cold_entries"] >= 1
+    assert tiers[0]["hot"]["bytes"] <= 2 * (1 << 10)
+    assert tiers[0] == tiers[1]
 
 
 def test_anomaly_catalogue_is_stable():

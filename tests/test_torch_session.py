@@ -258,8 +258,9 @@ def test_tracing_spans_and_disable():
                                     dict(record=True), dict(cold_tier="host"),
                                     dict(cold_budget=1024)])
 def test_features_of_later_slices_raise(kwargs):
-    """step.check and step.obs are ported: check=True and record=True arm
-    (and disarm); the cold tiers still raise until their slice."""
+    """step.check, step.obs and step.tiers are ported: check=True and
+    record=True arm (and disarm); cold_tier and cold_budget plumb into the
+    store and report its tiers as repro's session does."""
     from repro_torch.check import checker as stepcheck
 
     if "check" in kwargs:
@@ -275,8 +276,13 @@ def test_features_of_later_slices_raise(kwargs):
         sess.recorder.close()
         assert telemetry.armed_count() == 0
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Session(device=CPU, **kwargs)
+        sess, jsess = Session(device=CPU, **kwargs), JSession(**kwargs)
+        for ses, arr in ((sess, torch.as_tensor), (jsess, jnp.asarray)):
+            for i in range(3):
+                ses.new_array(f"t{i}", (256,)).set(arr(np.full(256, i, np.float32)))
+        assert sess.metrics()["tiers"] == jsess.metrics()["tiers"]
+        assert (sess.store.cold_tier is None) == ("cold_tier" not in kwargs)
+        assert sess.metrics()["tiers"]["budget_bytes"] == kwargs.get("cold_budget")
 
 
 def test_session_methods_of_later_slices_raise():

@@ -1,8 +1,8 @@
 """The port's step.trace (``repro_torch.core.telemetry``) on the session's
-hot paths, mirroring ``tests/test_trace.py`` case by case (its FT cases,
-recovery re-arming the tracer and the heartbeat payload, wait for the port's
-ft slice).  Where a count is the program's and not the clock's, it is held
-equal to repro's on the same program."""
+hot paths, mirroring ``tests/test_trace.py`` case by case, its FT cases
+(recovery re-arming the tracer, the heartbeat payload) included.  Where a
+count is the program's and not the clock's, it is held equal to repro's on
+the same program."""
 
 import json
 import threading
@@ -352,3 +352,63 @@ def test_armed_checker_and_recorder_together():
     finally:
         sess.checker.disable()
         sess.recorder.close()
+
+
+# -- FT integration -----------------------------------------------------------
+
+
+def test_recovery_rearms_tracer():
+    """session_recovery's replacement session adopts the dead session's
+    tracer (still armed) and keeps recording into the same timeline."""
+    from repro_torch.ft import session_recovery
+
+    sess = Session(backend="host", n_nodes=2, threads_per_node=1, shards=2,
+                   trace=True, device=CPU)
+    try:
+        ref = sess.new_array("w", (16,))
+        sess.run(lambda ctx, xs: ref.accumulate(xs.sum(axis=0)), data=(torch.ones(2, 16),))
+        before = sess.tracer.snapshot()["events"]
+        assert before > 0
+        plan, new_sess = session_recovery(sess, [1])
+        assert new_sess.tracer is sess.tracer and new_sess.tracer.enabled
+        assert new_sess.store.tracer is sess.tracer
+        ref2 = new_sess.ref("w")
+        new_sess.run(lambda ctx, xs: ref2.accumulate(xs.sum(axis=0)), data=(torch.ones(1, 16),))
+        assert new_sess.tracer.snapshot()["events"] > before
+    finally:
+        sess.tracer.disable()
+
+
+def test_heartbeat_metrics_payload():
+    """metrics_payload over the same program in both packages: the same
+    keys, wire traffic and barrier-wait count (the latencies are clocks)."""
+    from repro.ft import metrics_payload as jmetrics_payload
+    from repro_torch.ft import metrics_payload
+
+    payloads = []
+    for sess, ones in ((Session(backend="host", n_nodes=1, threads_per_node=2, trace=True,
+                                device=CPU), torch.ones),
+                       (JSession(backend="host", n_nodes=1, threads_per_node=2, trace=True),
+                        jnp.ones)):
+        try:
+            ref = sess.new_array("v", (8,))
+
+            def proc(ctx, xs):
+                ref.accumulate(xs.sum(axis=0))
+                ctx.barrier()
+                return None
+
+            sess.run(proc, data=(ones((2, 8)),))
+            fn = metrics_payload if isinstance(sess, Session) else jmetrics_payload
+            payloads.append(fn(sess))
+        finally:
+            sess.tracer.disable()
+    ours, theirs = payloads
+    assert ours["trace_enabled"] is True
+    assert ours["barrier_wait_us"]["count"] >= 2
+    assert ours["barrier_wait_us"]["p99"] >= ours["barrier_wait_us"]["p50"]
+    assert ours["op_rates"]["store.set"] > 0
+    assert list(ours) == list(theirs) and set(ours["op_rates"]) == set(theirs["op_rates"])
+    for key in ("wire_traffic", "rebalance", "record_armed"):
+        assert ours[key] == theirs[key], key
+    assert ours["barrier_wait_us"]["count"] == theirs["barrier_wait_us"]["count"]
