@@ -123,14 +123,44 @@ Phases, in order; any failure raises and the run exits non-zero:
              tokens and 32 generated.  Each model is freed before the next.
              Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
              kernel's bf16 body once per layer.
-8. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+8. train   — training on the card (device left at its default): (a)
+             train() on qwen3-1.7b at its full config (2.03 B parameters,
+             fp32, AdamW + warmup_cosine + clip 1.0, LMDataPipeline), 8
+             steps of 8 x 128 tokens: finite losses, the last below the
+             first, no flash_attention launch (blocked attention, as repro
+             trains); each step's seconds, the median tokens/s of steps 2-7
+             and the peak device memory printed; then a backward through
+             the flash kernel (smoke_config, attention_impl="pallas") must
+             raise NotImplementedError; (b) smoke_config, 10 steps on the
+             card against the same 10 on the CPU from the same weights
+             (losses within 1e-4 relative), and train() stopped by a
+             checkpoint under build/ at step 6 and resumed, against its
+             uninterrupted run (within 1e-5; whether bit-equal is printed);
+             (c) mamba2-2.7b at full width cut to 16 of its 64 layers, 4
+             steps with finite losses, step times and peak memory printed;
+             (d) ZeRO-1 over 4 mesh positions as threads: qwen3-1.7b at full
+             width cut to 2 layers (723 M parameters), each position's
+             gradient of its quarter of an 8 x 128 batch through
+             zero1_update for 3 steps, the gathered fp32 master held to a
+             replicated AdamW on the position-order mean gradient (rtol
+             1e-5, atol 1e-7) and the bf16 params to 2e-2; (e)
+             compressed_accumulate on each position's packed gradient of (d)
+             at k = n/32 (topk_compress's argmax body) and n/4 (its bitonic
+             body): per position sent + residual == corrected, the pairs
+             equal to topk_compress's plain version, the total equal to the
+             plain densify of the positions' sent pairs, all bit for bit,
+             and the launches of both bodies and of sparse_scatter_add as
+             the code gives them.
+9. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
+import io
 import json
 import os
 import re
@@ -149,14 +179,16 @@ from repro_torch import card_info  # noqa: E402
 from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
 from repro_torch.check import CheckError  # noqa: E402
 from repro_torch.check import checker as stepcheck  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import HostBackend, Session, SpmdBackend, make_mesh, telemetry  # noqa: E402
-from repro_torch.core.compat import P  # noqa: E402
+from repro_torch.configs import get_arch, smoke_config  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    HostBackend, Session, SpmdBackend, make_mesh, pack_spec, pack_tree, telemetry)
+from repro_torch.core.compat import P, axis_index, axis_size, run_positions, shard_map  # noqa: E402
 from repro_torch.core.shards import ShardedStore  # noqa: E402
 from repro_torch.core.tiers import DiskTier, HostMemTier  # noqa: E402
-from repro_torch.core.sparse import block_layout, blocked_topk_sparsify  # noqa: E402
+from repro_torch.core.sparse import block_layout, blocked_topk_sparsify, densify  # noqa: E402
 from repro_torch.data import (  # noqa: E402
-    kmeans_dataset, logreg_dataset, nmf_dataset, partition_rows, powerlaw_graph)
+    LMDataPipeline, kmeans_dataset, lm_batch, logreg_dataset, nmf_dataset, partition_rows,
+    powerlaw_graph, shard_batch)
 from repro_torch.ft import (  # noqa: E402
     AsyncCheckpointer, HeartbeatMonitor, elastic_restore, metrics_payload, restore_checkpoint,
     save_checkpoint, session_recovery)
@@ -179,8 +211,12 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
     BITONIC_MIN_K, topk_compress, topk_compress_plain)
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    adamw, compressed_accumulate, compression_ratio, ef_init, warmup_cosine, zero1_gather_params,
+    zero1_init, zero1_update)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -2194,6 +2230,316 @@ def run_lm() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training — the trainer at full width, the card against the CPU,
+# ZeRO-1 over mesh positions and error-feedback compression
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128      # repro's trainer defaults: 1,024 tokens
+SMOKE_STEPS, SMOKE_RESUME_AT = 10, 6
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_STEPS = 16, 4        # of mamba2-2.7b's 64 layers
+ZERO_LAYERS, ZERO_STEPS = 2, 3                       # qwen3-1.7b at full width, 2 layers
+EF_DIVISORS = ((32, "topk_compress_argmax"), (4, "topk_compress_bitonic"))   # k = n / d
+TRAIN_LR = 3e-4                                      # repro's trainer default
+CARD_VS_CPU_RTOL, RESUME_RTOL = 1e-4, 1e-5
+ZERO_TOL = dict(rtol=1e-5, atol=1e-7)
+ZERO_BF16_TOL = dict(rtol=2e-2, atol=2e-2)           # tests/test_spmd.py:58
+STEP_LINE = re.compile(r"\[train\] step\s+(\d+) loss\s+(\S+) \(([\d.]+)s this step")
+
+
+class _Tee:
+    """Write to two streams: a run's output stays visible while it is
+    captured for parsing."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def train_loop(model, opt, steps: int, device):
+    """``steps`` steps of ``make_train_step`` on ``LMDataPipeline``'s batches,
+    as ``train`` runs them; returns the losses and each step's seconds (a
+    step ends when its loss reaches the host)."""
+    step_fn = make_train_step(model, opt)
+    params = model.param_tree()
+    state = opt.init(params)
+    pipe = LMDataPipeline(TRAIN_BATCH, TRAIN_SEQ, model.cfg.vocab, seed=SEED, device=device)
+    losses, secs = [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step, batch = pipe.next()
+            params, state, loss, _ = step_fn(params, state, batch, step)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        pipe.close()
+    return losses, secs
+
+
+def check_losses(label: str, losses, n: int) -> None:
+    if len(losses) != n or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses} are not {n} finite values")
+
+
+def max_rel(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def train_full_qwen3(counts: dict) -> None:
+    """(a): train() on qwen3-1.7b at its full config; each step's seconds
+    from the trainer's own log line, the median tokens/s of steps 2-7."""
+    out = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+            return train("qwen3-1.7b", smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                         seq=TRAIN_SEQ, log_every=1, seed=SEED)
+
+    losses, launched = run_app(f"train qwen3-1.7b {TRAIN_STEPS} x {TRAIN_BATCH}x{TRAIN_SEQ}",
+                               counts, run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_losses("train qwen3-1.7b", losses, TRAIN_STEPS)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train qwen3-1.7b: loss {losses[0]} -> {losses[-1]} did not fall")
+    expect_launches("train qwen3-1.7b (blocked attention, as repro trains)", launched,
+                    {"flash_attention": 0, "ssd_scan": 0})
+    secs = {int(m.group(1)): float(m.group(3)) for m in STEP_LINE.finditer(out.getvalue())}
+    if sorted(secs) != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"train qwen3-1.7b: log lines for steps {sorted(secs)}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rates = [tokens / secs[s] for s in range(2, TRAIN_STEPS)]
+    log(f"train qwen3-1.7b: {tokens} tokens a step; step seconds "
+        f"{[secs[s] for s in range(TRAIN_STEPS)]}; median tokens/s of steps "
+        f"2-{TRAIN_STEPS - 1} {statistics.median(rates):.1f}; peak device memory "
+        f"{peak:.3f} GiB; losses {losses}")
+
+
+def pallas_backward_refused() -> None:
+    """(a), last: a model asked for the flash kernel cannot be trained; its
+    backward raises repro's NotImplementedError instead of leaving q, k, v
+    out of the graph."""
+    cfg = smoke_config(get_arch("qwen3-1.7b")).replace(attention_impl="pallas")
+    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model.requires_grad_(True)
+    batch = shard_batch(lm_batch(0, 2, 64, cfg.vocab))
+    loss, _ = model.loss_fn(batch)
+    try:
+        loss.backward()
+    except NotImplementedError as e:
+        log(f"train qwen3-1.7b smoke, attention_impl='pallas': backward raised "
+            f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("a backward through the flash kernel did not raise")
+
+
+def train_smoke_checks(counts: dict) -> None:
+    """(b): smoke_config on the card against the port's CPU path from the
+    same weights and batches; then train() stopped at a checkpoint and
+    resumed, against its uninterrupted run."""
+    cfg = smoke_config(get_arch("qwen3-1.7b"))
+    weights = build_model(cfg, device="cpu").state_dict()
+    losses = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(weights)
+        opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, SMOKE_STEPS))
+        (run, _), _ = run_app(f"train qwen3-1.7b smoke {SMOKE_STEPS} steps on {dev}", counts,
+                              lambda: train_loop(model, opt, SMOKE_STEPS, dev))
+        losses.append(run)
+    cpu_losses, card_losses = losses
+    rel = max_rel(card_losses, cpu_losses)
+    log(f"train smoke, card against CPU: max relative loss difference {rel:.3e} (limit "
+        f"{CARD_VS_CPU_RTOL}); card losses {card_losses}")
+    if not rel <= CARD_VS_CPU_RTOL:
+        raise AssertionError(f"train smoke: the card's losses are {rel:.3e} off the CPU's")
+
+    kw = dict(smoke=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS)
+    full = train("qwen3-1.7b", steps=SMOKE_STEPS, **kw)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        train("qwen3-1.7b", steps=SMOKE_RESUME_AT, ckpt_dir=root,
+              ckpt_every=SMOKE_RESUME_AT - 1, total_steps=SMOKE_STEPS, **kw)
+        resumed = train("qwen3-1.7b", steps=SMOKE_STEPS, ckpt_dir=root, **kw)
+    want = full[SMOKE_RESUME_AT:]
+    if len(resumed) != len(want):
+        raise AssertionError(f"train smoke resume ran {len(resumed)} steps, not {len(want)}")
+    rel = max_rel(resumed, want)
+    log(f"train smoke resume at step {SMOKE_RESUME_AT}: max relative loss difference "
+        f"{rel:.3e} (limit {RESUME_RTOL}), bit-equal: {resumed == want}")
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"train smoke resume: {resumed} against {want}")
+
+
+def train_mamba_cut(counts: dict) -> None:
+    """(c): mamba2-2.7b at full width, its depth cut to MAMBA_TRAIN_LAYERS:
+    its 64 layers at fp32 with AdamW need ~45 GB of state before
+    activations."""
+    cfg = get_arch("mamba2-2.7b").replace(n_layers=MAMBA_TRAIN_LAYERS)
+    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train mamba2-2.7b: depth cut to {MAMBA_TRAIN_LAYERS} of 64 layers, {n_params} "
+        f"parameters ({n_params * 16 / 1e9:.2f} GB of fp32 params, grads and two moments)")
+    opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, MAMBA_TRAIN_STEPS))
+    (losses, secs), launched = run_app(
+        f"train mamba2-2.7b {MAMBA_TRAIN_LAYERS} layers {MAMBA_TRAIN_STEPS} x "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}", counts,
+        lambda: train_loop(model, opt, MAMBA_TRAIN_STEPS, "cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_losses("train mamba2-2.7b", losses, MAMBA_TRAIN_STEPS)
+    expect_launches("train mamba2-2.7b (chunked SSD, as repro trains)", launched,
+                    {"ssd_scan": 0})
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train mamba2-2.7b: step seconds {secs}; tokens/s of steps 1-"
+        f"{MAMBA_TRAIN_STEPS - 1} {[round(tokens / s, 1) for s in secs[1:]]}; peak device "
+        f"memory {peak:.3f} GiB; losses {losses}")
+
+
+def zero1_run(counts: dict):
+    """(d): ZeRO-1 over SPMD_POSITIONS mesh positions as threads on the card.
+    Each position differentiates the shared model on its quarter of the
+    batch (shard_map over P("data")) and steps through zero1_update; the
+    gathered fp32 master is held against a replicated AdamW on the
+    position-order mean gradient, the bf16 params to tests/test_spmd.py's
+    2e-2.  The model's weights follow the master from step to step.
+    Returns the positions' last gradients, packed, for (e)."""
+    cfg = get_arch("qwen3-1.7b").replace(n_layers=ZERO_LAYERS)
+    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model.requires_grad_(True)
+    params = model.param_tree()
+    n_params = sum(p.numel() for p in params.values())
+    log(f"zero1: qwen3-1.7b cut to {ZERO_LAYERS} layers, {n_params} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB fp32), {SPMD_POSITIONS} positions")
+    spec = pack_spec(params)
+    mesh = make_mesh((SPMD_POSITIONS,), ("data",), device="cuda")
+    opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, ZERO_STEPS))
+    states = [None] * SPMD_POSITIONS
+    grads = [None] * SPMD_POSITIONS
+    bf16 = {}
+
+    def position(tokens, labels):
+        i = axis_index("data")
+        loss, _ = model.loss_fn({"tokens": tokens, "labels": labels})
+        g = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if states[i] is None:
+            states[i] = zero1_init(params, opt, axis_size("data"), i, spec)
+        new_params, states[i] = zero1_update(g, states[i], opt, "data", spec)
+        if i == 0:
+            bf16.update(new_params)
+        grads[i] = g
+        return zero1_gather_params(states[i], "data", spec, dtype=torch.float32)
+
+    def steps() -> float:
+        ref = {k: p.detach().clone() for k, p in params.items()}
+        ref_state = opt.init(ref)
+        pipe = LMDataPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, mesh=mesh, seed=SEED,
+                              prefetch=False)
+        worst = 0.0
+        for s in range(ZERO_STEPS):
+            _, batch = pipe.next()
+            master = shard_map(position, mesh=mesh, in_specs=P("data"), out_specs=P())(
+                batch["tokens"], batch["labels"])
+            with torch.no_grad():
+                mean = {k: (grads[0][k] + grads[1][k] + grads[2][k] + grads[3][k])
+                        / SPMD_POSITIONS for k in params}
+                updates, ref_state = opt.update(mean, ref_state, ref, s)
+                del mean
+                ref = {k: ref[k] + updates[k] for k in params}
+                del updates
+                for k, p in params.items():
+                    torch.testing.assert_close(master[k], ref[k], **ZERO_TOL)
+                    torch.testing.assert_close(bf16[k].float(), ref[k], **ZERO_BF16_TOL)
+                    worst = max(worst, float((master[k] - ref[k]).abs().max()))
+                    p.copy_(master[k])
+            del master
+        return worst
+
+    worst, launched = run_app(f"zero1 {SPMD_POSITIONS} positions {ZERO_STEPS} steps", counts,
+                              steps)
+    log(f"zero1: fp32 master against replicated AdamW over {ZERO_STEPS} steps, max |diff| "
+        f"{worst:.3e} (rtol {ZERO_TOL['rtol']}, atol {ZERO_TOL['atol']}); bf16 params within "
+        f"{ZERO_BF16_TOL['rtol']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    expect_launches("zero1 (its collectives are plain torch)", launched,
+                    {"topk_compress_argmax": 0, "topk_compress_bitonic": 0,
+                     "sparse_scatter_add": 0, "flash_attention": 0})
+    del states, bf16, model, params       # (d)'s optimizer state goes first
+    with torch.no_grad():
+        flats = [pack_tree(g, spec) for g in grads]
+    del grads
+    return flats
+
+
+def ef_run(flats: list, counts: dict) -> None:
+    """(e): compressed_accumulate on each position's packed gradient of (d),
+    at k = n/32 (32 a block: B) and n/4 (256: C).  Per position sent +
+    residual == corrected bit for bit and the pairs are topk_compress's
+    plain version's; the total is the plain densify of the positions' sent
+    vectors' pairs in position order."""
+    n = flats[0].numel()
+    mesh = make_mesh((SPMD_POSITIONS,), ("data",), device="cuda")
+    for div, body in EF_DIVISORS:
+        k = n // div
+        _, block_eff, per_block = block_layout(n, k)
+        label = f"ef compressed_accumulate n={n} k=n/{div} ({per_block} a block)"
+        outs, launched = run_app(label, counts, lambda: run_positions(
+            mesh, lambda i: compressed_accumulate(flats[i], ef_init(n), "data", k)))
+        other = next(b for _, b in EF_DIVISORS if b != body)
+        expect_launches(label, launched, {body: 2 * SPMD_POSITIONS, other: 0,
+                                          "sparse_scatter_add": SPMD_POSITIONS + 1})
+        total = outs[0][0]
+        sent_pairs = []
+        for i, (total_i, ef) in enumerate(outs):
+            if total_i is not total:
+                raise AssertionError(f"{label}: position {i} got a total of its own")
+            corrected = flats[i] + 0.0            # + the zero residual, as the call adds it
+            pairs = blocked_topk_sparsify(corrected, k)
+            plain = topk_compress_plain(corrected, per_block, block_eff)
+            if not (torch.equal(pairs.idx, plain[0]) and torch.equal(pairs.vals, plain[1])):
+                raise AssertionError(f"{label}: position {i}'s pairs differ from the plain "
+                                     "version's")
+            sent = densify(pairs.idx, pairs.vals, n)
+            del pairs, plain
+            if not torch.equal(sent + ef.residual, corrected):
+                raise AssertionError(f"{label}: position {i}: sent + residual != corrected")
+            sent_pairs.append(topk_compress_plain(sent, per_block, block_eff))
+            del corrected, sent
+        want = sparse_scatter_add_plain(torch.stack([p[0] for p in sent_pairs]),
+                                        torch.stack([p[1] for p in sent_pairs]), n)
+        if not torch.equal(total, want):
+            raise AssertionError(f"{label}: the total differs from the plain densify")
+        log(f"{label}: compression_ratio {compression_ratio(n, k):.4f}, wall "
+            f"{WALLS[label]:.4f} s; sent + residual == corrected on every position, pairs "
+            f"and total bit-equal to the plain versions")
+        del outs, total, sent_pairs, want
+
+
+def run_train() -> dict:
+    """Phase 8 (train): every run of it on the card, any failure raises."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts: dict = {}
+    train_full_qwen3(counts)
+    pallas_backward_refused()
+    torch.cuda.empty_cache()
+    train_smoke_checks(counts)
+    train_mamba_cut(counts)
+    torch.cuda.empty_cache()
+    flats = zero1_run(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ef_run(flats, counts)
+    del flats
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2243,6 +2589,8 @@ def main() -> None:
     for name, n in run_ft(keep).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in run_lm().items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in run_train().items():
         counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:

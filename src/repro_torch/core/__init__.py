@@ -6,7 +6,8 @@ from repro_torch.core.accumulator import (
 from repro_torch.core.addressing import AddressAllocator, make_address, ring_hash, split_address, watcher_node
 from repro_torch.core.cache import CacheStats, DSMCache
 from repro_torch.core.compat import Mesh, PartitionSpec, axis_index, axis_size, make_mesh, shard_map
-from repro_torch.core.dsm import GlobalStore, load_numpy_state
+from repro_torch.core.dsm import (
+    GlobalStore, PackSpec, load_numpy_state, pack_spec, pack_tree, unpack_tree)
 from repro_torch.core.session import (
     Backend, HostBackend, HostWorkerCtx, Session, SharedRef, SpmdBackend, SpmdWorkerCtx, WorkerCtx)
 from repro_torch.core.shards import (
@@ -33,12 +34,13 @@ __all__ = [
     "DAddAccumulator", "DBarrier", "DSMCache", "DSemaphore", "DThread", "DThreadPool",
     "DiskTier", "GlobalEntry", "GlobalStore", "HashRing", "HostBackend", "HostMemTier",
     "HostWorkerCtx", "Mesh", "MigrationWindow", "NULL_TRACER", "OwnerHandle",
-    "PartitionSpec", "SSPClock", "Session", "Shard", "ShardMigration", "ShardedStore",
-    "SharedRef", "SparsePairs", "SpmdBackend", "SpmdWorkerCtx", "ThreadState",
-    "Tracer", "WorkerCtx", "accumulate", "accumulate_scatter", "accumulate_tree",
-    "as_tracer", "axis_index", "axis_size", "block_layout", "blocked_topk_accumulate",
-    "blocked_topk_sparsify", "default_auto_k", "densify", "load_numpy_state",
-    "make_address", "make_mesh", "pair_capacity", "ring_hash", "shard_map",
-    "sparse_beneficial", "sparse_beneficial_batch", "split_address", "spmd_threads",
-    "telemetry", "topk_sparsify", "watcher_node",
+    "PackSpec", "PartitionSpec", "SSPClock", "Session", "Shard", "ShardMigration",
+    "ShardedStore", "SharedRef", "SparsePairs", "SpmdBackend", "SpmdWorkerCtx",
+    "ThreadState", "Tracer", "WorkerCtx", "accumulate", "accumulate_scatter",
+    "accumulate_tree", "as_tracer", "axis_index", "axis_size", "block_layout",
+    "blocked_topk_accumulate", "blocked_topk_sparsify", "default_auto_k", "densify",
+    "load_numpy_state", "make_address", "make_mesh", "pack_spec", "pack_tree",
+    "pair_capacity", "ring_hash", "shard_map", "sparse_beneficial",
+    "sparse_beneficial_batch", "split_address", "spmd_threads", "telemetry",
+    "topk_sparsify", "unpack_tree", "watcher_node",
 ]

@@ -1,5 +1,15 @@
-from repro_torch.data.pipeline import partition_rows
-from repro_torch.data.synthetic import kmeans_dataset, logreg_dataset, nmf_dataset, powerlaw_graph
+from repro_torch.data.pipeline import LMDataPipeline, Prefetcher, partition_rows, shard_batch
+from repro_torch.data.synthetic import (
+    SyntheticLM,
+    kmeans_dataset,
+    lm_batch,
+    logreg_dataset,
+    nmf_dataset,
+    powerlaw_graph,
+)
 
-__all__ = ["kmeans_dataset", "logreg_dataset", "nmf_dataset", "partition_rows",
-           "powerlaw_graph"]
+__all__ = [
+    "LMDataPipeline", "Prefetcher", "partition_rows", "shard_batch",
+    "SyntheticLM", "kmeans_dataset", "lm_batch", "logreg_dataset",
+    "nmf_dataset", "powerlaw_graph",
+]

@@ -3,10 +3,12 @@
 These are the analytics path's "weights": the generators are plain numpy on
 ``default_rng(seed)``, the same draws in the same order as
 :mod:`repro.data.synthetic`, so both packages make identical data from one
-seed.  The LM token streams wait for the LM slice.
+seed; the LM token stream too, from the same per-step seed.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -48,3 +50,26 @@ def powerlaw_graph(n_vertices: int, avg_degree: int = 8, seed: int = 0):
     src = rng.integers(0, n_vertices, size=n_edges)
     edges = np.stack([src, dst_pop], axis=1).astype(np.int32)
     return edges
+
+
+# -- LM token streams ----------------------------------------------------------
+
+
+def lm_batch(step: int, global_batch: int, seq_len: int, vocab: int, seed: int = 0):
+    """Index-addressable synthetic token batch: batch(step) is pure in (seed, step)."""
+    rng = np.random.default_rng(np.uint64(seed * 1_000_003 + step))
+    tokens = rng.integers(0, vocab, size=(global_batch, seq_len + 1), dtype=np.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+@dataclass
+class SyntheticLM:
+    """Stateless LM stream; restart(step) is exact by construction."""
+
+    global_batch: int
+    seq_len: int
+    vocab: int
+    seed: int = 0
+
+    def batch(self, step: int):
+        return lm_batch(step, self.global_batch, self.seq_len, self.vocab, self.seed)

@@ -31,9 +31,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.compat import tree_map
 from repro_torch.device import resolve_device
-from repro_torch.utils.tree import tree_flatten_with_paths, tree_unflatten
+from repro_torch.utils.tree import tree_flatten_with_paths, tree_map, tree_unflatten
 
 _MANIFEST = "manifest.json"
 _BF16 = "bfloat16"
@@ -166,7 +165,8 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         self.wait()  # one in flight at a time
-        # a copy, so that the caller may go on updating its tensors
+        # a copy, so that the caller may go on updating its tensors (in its
+        # structure: a namedtuple keeps its field names in the leaves' paths)
         host_tree = tree_map(lambda x: x.detach().to("cpu", copy=True)
                              if isinstance(x, torch.Tensor) else np.array(x), tree)
 

@@ -92,6 +92,40 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Kernels without a backward
+# ---------------------------------------------------------------------------
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """``fn(*inputs)`` as one node of the graph whose backward raises: the
+    output keeps a ``grad_fn``, so a gradient through it fails loudly
+    instead of silently leaving the inputs out of the graph."""
+
+    @staticmethod
+    def forward(ctx, message, fn, *inputs):
+        ctx.message = message
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(ctx.message)
+
+
+def differentiated(*inputs: torch.Tensor) -> bool:
+    """Whether a call on ``inputs`` is being recorded for a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def forward_only(message: str, fn, *inputs: torch.Tensor):
+    """``fn(*inputs)`` whose gradient raises ``NotImplementedError(message)``
+    — on every device, the plain version a CPU tensor runs included.  The
+    JAX package's Pallas kernels define no backward, so the port's define
+    none either.  Call it only where :func:`differentiated` holds: a call
+    with no gradient to record goes straight to ``fn``."""
+    return _ForwardOnly.apply(message, fn, *inputs)
+
+
+# ---------------------------------------------------------------------------
 # Build
 # ---------------------------------------------------------------------------
 

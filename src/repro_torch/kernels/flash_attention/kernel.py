@@ -8,7 +8,10 @@ dk), k (B, S, KH, dk), v (B, S, KH, dv) → (B, T, KH, G, dv): query head
 
 A CPU tensor takes the plain version (:func:`attention_bhsd_ref` after the
 JAX wrapper's fold of (KH, G) into the head axis); a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  Neither is differentiable: ``repro``'s Pallas kernel
+has no backward, so a call recorded for a gradient gets an output whose
+backward raises (:func:`~repro_torch.kernels.build.forward_only`), on the
+card and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ MAX_HEAD_DIM = 256                 # dk and dv: the kernel's widest instantiatio
 DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 launches = build.LaunchCounter("flash_attention")
+NO_BACKWARD = ("flash_attention has no backward: repro's Pallas kernel defines none, so "
+               "the port's kernel defines none either; train with "
+               "attention_impl='blocked' (or 'naive')")
 # the bf16 body's launches, counted apart as well (each is also one of the above)
 launches_bf16 = build.LaunchCounter("flash_attention_bf16")
 
@@ -59,7 +65,10 @@ def gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (B, T, KH, G, dk); k (B, S, KH, dk); v (B, S, KH, dv) → (B, T, KH, G, dv)
-    in q's dtype (fp32 math)."""
+    in q's dtype (fp32 math).  Not differentiable (its backward raises)."""
+    if build.differentiated(q, k, v):
+        return build.forward_only(NO_BACKWARD, lambda *t: flash_attention_gqa(
+            *t, causal=causal, q_offset=q_offset), q, k, v)
     if q.ndim != 5 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_attention wants q (B, T, KH, G, dk), k (B, S, KH, dk), "
                          f"v (B, S, KH, dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -108,7 +117,11 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q (BH, T, d), k (BH, S, d), v (BH, S, dv) → (BH, T, dv)."""
+    """q (BH, T, d), k (BH, S, d), v (BH, S, dv) → (BH, T, dv).  Not
+    differentiable (its backward raises)."""
+    if build.differentiated(q, k, v):
+        return build.forward_only(NO_BACKWARD, lambda *t: flash_attention_bhsd(
+            *t, causal=causal, q_offset=q_offset), q, k, v)
     if q.device.type == "cpu":
         return attention_bhsd_ref(q, k, v, causal=causal, q_offset=q_offset)
     out = flash_attention_gqa(q[:, :, None, None], k[:, :, None], v[:, :, None],

@@ -18,7 +18,11 @@ as consecutive sub-chunks (:func:`sub_chunk`), each an item of the chain:
 the same recurrence.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the chunked
-algorithm); a CUDA tensor launches the kernel or raises.
+algorithm); a CUDA tensor launches the kernel or raises.  Neither is
+differentiable: ``repro``'s Pallas kernel has no backward, so a call
+recorded for a gradient gets an output whose backward raises
+(:func:`~repro_torch.kernels.build.forward_only`), on the card and on the
+CPU alike.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import check_chunks, ssd_scan_plain
 
 launches = build.LaunchCounter("ssd_scan")
+NO_BACKWARD = ("ssd_scan has no backward: repro's Pallas kernel defines none, so the "
+               "port's kernel defines none either; train with ssd_impl='chunked'")
 
 _SIGNATURES = {"ssd_scan": (build.INT, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
                             build.INT, build.INT, build.INT, build.INT, build.INT,
@@ -62,7 +68,11 @@ def sub_chunk(chunk: int, P: int, N: int) -> int:
 
 def ssd_scan(xbar: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
              chunk: int) -> torch.Tensor:
-    """y (b, T, H, P) of the SSD scan; the state starts at zero."""
+    """y (b, T, H, P) of the SSD scan; the state starts at zero.  Not
+    differentiable (its backward raises)."""
+    if build.differentiated(xbar, a, B, C):
+        return build.forward_only(NO_BACKWARD, lambda *t: ssd_scan(*t, chunk=chunk),
+                                  xbar, a, B, C)
     if xbar.ndim != 4 or a.ndim != 3 or B.ndim != 4 or C.shape != B.shape:
         raise ValueError(f"ssd_scan wants xbar (b,T,H,P), a (b,T,H), B/C (b,T,G,N); got "
                          f"{tuple(xbar.shape)}, {tuple(a.shape)}, {tuple(B.shape)}, "

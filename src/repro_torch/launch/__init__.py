@@ -1,1 +1,6 @@
-"""Serving entry points of the port (training and cell assembly come later)."""
+"""Launch layer of the port: the step functions, the serving loop and the
+trainer (meshes, sharding rules, dry-run and roofline are not ported)."""
+
+from repro_torch.launch.train import train
+
+__all__ = ["train"]

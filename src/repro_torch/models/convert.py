@@ -5,12 +5,14 @@ carry a leading layer axis; the port keeps the same names in
 ``nn.ModuleDict`` / ``nn.ParameterDict``\\ s with one ``nn.ModuleList``
 entry per layer.  :func:`load_jax_params` copies the first into the second,
 so both packages compute the same function on the same weights (the tests
-hold one against the other that way).
+hold one against the other that way).  :func:`load_jax_opt_state` carries
+the optimizer state of a JAX run across beside them, so that a run stopped
+at step k in ``repro`` goes on in the port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -53,3 +55,49 @@ def _same_keys(path: str, ours: set, theirs: set) -> None:
     if ours != theirs:
         raise KeyError(f"{path or '/'}: the port has {sorted(ours - theirs)} that the JAX "
                        f"tree lacks, and lacks {sorted(theirs - ours)}")
+
+
+def _jax_leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
+    """The leaf of ``tree`` under the port's dotted parameter ``name``: a
+    numeric part that is no key of its dict indexes the stacked layer axis
+    of the leaf below it."""
+    node, layers = tree, []
+    for part in name.split("."):
+        if part.isdigit() and part not in node:
+            layers.append(int(part))
+        else:
+            node = node[part]
+    arr = np.asarray(node)
+    for i in layers:
+        arr = arr[i]
+    return arr
+
+
+def jax_tree_to_params(module: nn.Module, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tree shaped like ``repro``'s parameters (stacked layer axes, numpy
+    leaves) as the port's parameter tree (``module.param_tree()``'s keys),
+    fp32 on the module's parameters' devices, shapes checked."""
+    out = {}
+    for name, p in module.named_parameters():
+        arr = _jax_leaf(tree, name)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} does not match the port's "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.device)
+    return out
+
+
+def load_jax_opt_state(module: nn.Module, state):
+    """``repro``'s optimizer state over ``module``'s parameters as the port's:
+    an ``AdamState`` (``mu``/``nu`` trees with stacked layer axes, numpy
+    leaves) becomes the port's ``AdamState`` over ``param_tree()``'s names,
+    fp32 on the module's devices; SGD's momentum tree likewise, and its
+    empty state stays empty.  With :func:`load_jax_params` it lets a JAX
+    run's (params, opt_state) at step k go on in the port from step k + 1."""
+    from repro_torch.optim.optimizers import AdamState
+    if hasattr(state, "mu") and hasattr(state, "nu"):
+        return AdamState(jax_tree_to_params(module, state.mu),
+                         jax_tree_to_params(module, state.nu))
+    if isinstance(state, tuple) and not state:
+        return ()
+    return jax_tree_to_params(module, state)

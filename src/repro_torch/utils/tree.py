@@ -34,20 +34,25 @@ def path_str(path) -> str:
     return ".".join(str(p) for p in path)
 
 
+def _walk(node, path: tuple, out: list) -> None:
+    if node is None:
+        return
+    if not _is_inner(node):
+        out.append((path_str(path), node))
+        return
+    for key, child in _children(node):
+        _walk(child, path + (key,), out)
+
+
 def tree_flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
-    """Return ``[(path_str, leaf), ...]`` in JAX's deterministic order."""
+    """Return ``[(path_str, leaf), ...]`` in JAX's deterministic order.
+
+    The walks here are module-level functions, not nested ones: a nested
+    recursive function is a reference cycle, which would hold the leaves it
+    saw until the cyclic collector runs — a whole gradient tree a call, in
+    a train step."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if not _is_inner(node):
-            out.append((path_str(path), node))
-            return
-        for key, child in _children(node):
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -58,26 +63,38 @@ def tree_leaves(tree: Any) -> list:
 _END = object()
 
 
+def _build(node, it):
+    if node is None:
+        return None
+    if not _is_inner(node):
+        return next(it)
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}        # the template's key order
+    items = [_build(child, it) for _, child in _children(node)]
+    return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
+
+
 def tree_unflatten(template: Any, leaves) -> Any:
     """``template``'s structure with its leaves replaced, in flattening
     order, by ``leaves``."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if not _is_inner(node):
-            return next(it)
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}        # the template's key order
-        items = [build(child) for _, child in _children(node)]
-        return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the template has")
     return out
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and, leaf for leaf, of ``rest``
+    (trees of the same structure), in ``tree``'s structure — as
+    ``jax.tree.map`` does."""
+    leaves = tree_leaves(tree)
+    others = [tree_leaves(r) for r in rest]
+    if any(len(o) != len(leaves) for o in others):
+        raise ValueError(f"tree_map: trees of {len(leaves)} and "
+                         f"{[len(o) for o in others]} leaves")
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def _leaf_size(x) -> int:

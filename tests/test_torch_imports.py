@@ -56,12 +56,16 @@ def test_port_files_exist():
           "kernels/accumulate/ops.py", "kernels/sparse_update/ref.py",
           "kernels/sparse_update/kernel.py", "kernels/sparse_update/ops.py",
           "analytics/nmf.py", "core/tiers.py", "utils/__init__.py", "utils/tree.py",
-          "ft/__init__.py", "ft/checkpoint.py", "ft/heartbeat.py", "ft/elastic.py"]
+          "ft/__init__.py", "ft/checkpoint.py", "ft/heartbeat.py", "ft/elastic.py",
+          "optim/__init__.py", "optim/optimizers.py", "optim/zero.py", "optim/compression.py",
+          "data/pipeline.py", "data/synthetic.py", "launch/train.py", "launch/__init__.py"]
     missing = [f for f in lm if f"src/repro_torch/{f}" not in names]
     assert not missing, missing
     for source in ("flash_attention.cu", "ssd_scan.cu", "accumulate.cu", "scatter_add.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / source).is_file(), source
-    assert "examples/torch_fault_tolerance_drill.py" in names
+    for example in ("torch_fault_tolerance_drill.py", "torch_train_lm.py",
+                    "torch_quickstart.py"):
+        assert f"examples/{example}" in names
     assert len(PORT_FILES) > 20
 
 
@@ -78,13 +82,20 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
     points raise instead of falling back to the CPU."""
     from repro_torch.analytics import kmeans, nmf
     from repro_torch.core import GlobalStore, Session
+    from repro_torch.data import LMDataPipeline, shard_batch
     from repro_torch.device import resolve_device
+    from repro_torch.launch import train
+    from repro_torch.optim import ef_init
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (resolve_device, Session, GlobalStore,
                  lambda: Session(cold_tier="host", cold_budget=0),
                  lambda: kmeans.fit_reference([[0.0, 1.0], [1.0, 0.0]], 1, 1),
-                 lambda: nmf.fit_reference(np.ones((2, 2), np.float32), 1, 1)):
+                 lambda: nmf.fit_reference(np.ones((2, 2), np.float32), 1, 1),
+                 lambda: train("qwen3-1.7b", steps=1),
+                 lambda: LMDataPipeline(2, 4, 10, prefetch=False),
+                 lambda: shard_batch({"tokens": np.zeros((2, 4), np.int32)}),
+                 lambda: ef_init(8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
