@@ -45,7 +45,10 @@ Phases, in order; any failure raises and the run exits non-zero:
              logreg's shape (b_split); ssd_scan at mamba2's prefill
              shape in f32 / bf16 at chunks 128 / 256, a call and on the
              device (f_timings); fused_topk_scatter likewise at pagerank's
-             and logreg's shapes in f32 / bf16 (a_timings).
+             and logreg's shapes in f32 / bf16 (a_timings).  flash_attention
+             and ssd_scan also at zamba2-2.7b's prefill shapes (MHA at head
+             dim 80; N 64), held and timed as at qwen3's and mamba2's
+             (check_zamba2_shapes; logged, not in the kernels line).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -111,16 +114,20 @@ Phases, in order; any failure raises and the run exits non-zero:
              a sample of the points checkpointed from the card (once through
              AsyncCheckpointer), restored by restore_checkpoint and
              elastic_restore onto a 4-position mesh, bit-equal on the card.
-7. lm      — qwen3-1.7b (flash attention) and mamba2-2.7b (SSD scan) at
-             their full published configs, random weights from a fixed
-             generator, device left at its default: (a) make_prefill_step on
-             4 x 2048 tokens, which must launch the kernel once per layer;
-             (b) forward on a 256-token prompt against 256 decode steps of
-             it: max |dlogit| <= 1e-3 max |logit| and the same argmax at
-             every position, the decode steps timed in four 64-step blocks;
-             mamba2-2.7b's gap is printed for its plain chunked forward too,
-             on the same weights; (c) serve(smoke=False) with 4 x 32 prompt
-             tokens and 32 generated.  Each model is freed before the next.
+7. lm      — qwen3-1.7b (flash attention), mamba2-2.7b (SSD scan) and
+             zamba2-2.7b (both: 54 mamba layers, a weight-shared attention
+             block after every 6) at their full published configs, random
+             weights from a fixed generator, device left at its default: (a)
+             make_prefill_step on 4 x 2048 tokens, which must launch each
+             kernel as LM_MODELS says (once a layer; zamba2 flash_attention
+             9, ssd_scan 54); (b) forward on a 256-token prompt against 256
+             decode steps of it: max |dlogit| <= 1e-3 max |logit| and the
+             same argmax at every position, the decode steps timed in four
+             64-step blocks; mamba2's and zamba2's gaps are printed for their
+             plain forwards too (chunked SSD, and blocked attention for
+             zamba2), on the same weights; (c) serve(smoke=False) with 4 x 32
+             prompt tokens and 32 generated.  Each model is freed before the
+             next.
              Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
              kernel's bf16 body once per layer.
 8. train   — training on the card (device left at its default): (a)
@@ -150,7 +157,11 @@ Phases, in order; any failure raises and the run exits non-zero:
              equal to topk_compress's plain version, the total equal to the
              plain densify of the positions' sent pairs, all bit for bit,
              and the launches of both bodies and of sparse_scatter_add as
-             the code gives them.
+             the code gives them; (f) train() on zamba2-2.7b at its full
+             config (2.42 B parameters, fp32, as (a)), 4 steps: finite
+             losses, no flash_attention or ssd_scan launch, step seconds,
+             tokens/s and peak memory printed; then a backward through
+             either kernel on its smoke_config must raise.
 9. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
@@ -273,9 +284,13 @@ KERNELS = {
 }
 
 # the LM serving path: each model at its full published config, with the
-# prefill implementation that runs its kernel; prefill batch x length
-LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, "flash_attention"),
-             "mamba2-2.7b": ({"ssd_impl": "pallas"}, "ssd_scan")}
+# prefill implementations that run its kernels and the launches of each in
+# one prefill forward (zamba2: 9 applications of the shared attention block,
+# 54 mamba layers); prefill batch x length
+LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28}),
+             "mamba2-2.7b": ({"ssd_impl": "pallas"}, {"ssd_scan": 64}),
+             "zamba2-2.7b": ({"attention_impl": "pallas", "ssd_impl": "pallas"},
+                             {"flash_attention": 9, "ssd_scan": 54})}
 LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
@@ -1030,12 +1045,22 @@ def check_flash(rng) -> dict:
                  gqa_plain(q, k, v, causal=True, q_offset=q_offset), dtype,
                  f"GQA {(b, t, s, kh, g)} q_offset={q_offset} {dtype}")
 
-    b, t, kh, g, d = LM_BATCH, LM_PREFILL, 8, 2, 128
+    return flash_prefill(rng, "qwen3-1.7b", 8, 2, 128)
+
+
+def flash_prefill(rng, arch: str, kh: int, g: int, d: int) -> dict:
+    """flash_attention at ``arch``'s prefill shape (B 4, T 2048, KH, G, d)
+    in fp32: held to its plain version, timed a call and by graph replay
+    beside the plain version and SDPA on the same inputs (K/V expanded to
+    the KH x G heads)."""
+    b, t = LM_BATCH, LM_PREFILL
     q = cuda_normal(rng, (b, t, kh, g, d))
     k, v = (cuda_normal(rng, (b, t, kh, d)) for _ in range(2))
     out = fa_ops.flash_attention(q, k, v, causal=True)
     ref = gqa_plain(q, k, v, causal=True, q_offset=0)
-    held(out, ref, torch.float32, "qwen3-1.7b prefill shape")
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol,
+                               msg=lambda m: f"flash_attention at the {arch} prefill shape: {m}")
     visible = t * (t + 1) // 2                       # causal (query, key) pairs per head
     nbytes, flops = 4 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * b * kh * g * visible * d
     # the fp32 body does each product as three TF32 products on the tensor
@@ -1044,10 +1069,11 @@ def check_flash(rng) -> dict:
     fp32_tb, _ = bound_ms(nbytes, flops)
     qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
     ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
-    log(f"flash_attention fp32 bounds at the qwen3 prefill shape: {tb:.4f} ms ({by}; "
-        f"3xTF32: 3 x the flops at 495 TFLOP/s on the tensor cores, the bound recorded), "
-        f"{fp32_tb:.4f} ms (the flops on the fp32 pipes at 67 TFLOP/s); shared memory per "
-        f"CTA {smem_bytes(d, d, torch.float32)} bytes")
+    log(f"flash_attention fp32 bounds at the {arch} prefill shape: {tb:.4f} ms ({by}; "
+        f"3xTF32: 3 x {flops / 1e9:.1f} GFLOP at 495 TFLOP/s on the tensor cores, the bound "
+        f"recorded), {fp32_tb:.4f} ms (the flops on the fp32 pipes at 67 TFLOP/s), bytes "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; shared memory per CTA "
+        f"{smem_bytes(d, d, torch.float32)} bytes")
     return dict(
         shape=f"q ({b}, {t}, {kh}, {g}, {d}) f32, k/v ({b}, {t}, {kh}, {d}), causal",
         max_abs_err=float((out - ref).abs().max()),
@@ -1097,13 +1123,23 @@ def check_ssd(rng) -> dict:
         torch.testing.assert_close(ssd_scan(xbar, a, bm, cm, chunk=q),
                                    ssd_scan_plain(xbar, a, bm, cm, q)[0], **SSD_TOL,
                                    msg=lambda m: f"ssd_scan at {(b, t, h, p, g, n, q)}: {m}")
-    b, t, h, p, g, n, q = LM_BATCH, LM_PREFILL, 80, 64, 1, 128, 128
+    return ssd_prefill(rng, "mamba2-2.7b", 80, 64, 1, 128, 128)
+
+
+def ssd_prefill(rng, arch: str, h: int, p: int, g: int, n: int, q: int) -> dict:
+    """ssd_scan at ``arch``'s prefill shape (b 4, T 2048, H, P, G, N, chunk):
+    held to its plain version, two calls in a row and a CUDA-graph replay
+    bit-equal to an eager call, timed a call and by graph replay.  Its
+    bound is the 3xTF32 tensor-core one (the fp32 pipes' printed beside
+    it)."""
+    b, t = LM_BATCH, LM_PREFILL
     xbar, a, bm, cm = ssd_inputs(rng, b, t, h, p, g, n)
     y = ssd_scan(xbar, a, bm, cm, chunk=q)
     ref = ssd_scan_plain(xbar, a, bm, cm, q)[0]
-    torch.testing.assert_close(y, ref, **SSD_TOL)
+    torch.testing.assert_close(y, ref, **SSD_TOL,
+                               msg=lambda m: f"ssd_scan at the {arch} prefill shape: {m}")
     if not torch.equal(ssd_scan(xbar, a, bm, cm, chunk=q), y):
-        raise AssertionError("ssd_scan: two calls in a row differ")
+        raise AssertionError(f"ssd_scan at the {arch} shape: two calls in a row differ")
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         replayed = ssd_scan(xbar, a, bm, cm, chunk=q)
@@ -1112,7 +1148,8 @@ def check_ssd(rng) -> dict:
         graph.replay()
         torch.cuda.synchronize()
         if not torch.equal(replayed, y):
-            raise AssertionError("ssd_scan: a CUDA-graph replay differs from the eager call")
+            raise AssertionError(f"ssd_scan at the {arch} shape: a CUDA-graph replay differs "
+                                 "from the eager call")
     del graph, replayed
     flops = ssd_flops(b, t, h, p, n, q)
     nbytes = 4 * (2 * xbar.numel() + a.numel() + bm.numel() + cm.numel())
@@ -1120,7 +1157,7 @@ def check_ssd(rng) -> dict:
     # bound recorded; the fp32 pipes' is printed beside it
     tb, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
     fp32_tb, _ = bound_ms(nbytes, flops)
-    log(f"ssd_scan bounds at the mamba2 prefill shape: {tb:.4f} ms ({by}; 3xTF32: 3 x "
+    log(f"ssd_scan bounds at the {arch} prefill shape: {tb:.4f} ms ({by}; 3xTF32: 3 x "
         f"{flops / 1e9:.1f} GFLOP at 495 TFLOP/s), {fp32_tb:.4f} ms (the flops on the fp32 "
         f"pipes at 67 TFLOP/s), bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
         f"({nbytes / 1e6:.1f} MB); shared memory per CTA {ssd_smem_bytes(q, p, n)} bytes")
@@ -1131,6 +1168,14 @@ def check_ssd(rng) -> dict:
         device_ms=graph_ms(lambda: ssd_scan(xbar, a, bm, cm, chunk=q), 20),
         plain_ms=time_ms(lambda: ssd_scan_plain(xbar, a, bm, cm, q), 5),
         bound_ms=tb, bound_by=by, fp32_bound_ms=fp32_tb, library_ms=None)
+
+
+def check_zamba2_shapes(rng) -> dict:
+    """E and F at zamba2-2.7b's prefill shapes: attention MHA (G 1) at head
+    dim 80 (the fp32 body pads dk to 96 and takes its 128 instance), the SSD
+    scan at N 64 (F's tiles were sized at mamba2's 128)."""
+    return {"flash_attention@zamba2-2.7b": flash_prefill(rng, "zamba2-2.7b", 32, 1, 80),
+            "ssd_scan@zamba2-2.7b": ssd_prefill(rng, "zamba2-2.7b", 80, 64, 1, 64, 128)}
 
 
 def f_timings(rng) -> dict:
@@ -2154,7 +2199,7 @@ def run_lm() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     counts: dict = {}
-    for arch, (overrides, kernel) in LM_MODELS.items():
+    for arch, (overrides, kernels) in LM_MODELS.items():
         cfg = get_arch(arch).replace(**overrides)
         gen = torch.Generator("cuda").manual_seed(SEED)
         t0 = time.perf_counter()
@@ -2174,7 +2219,7 @@ def run_lm() -> dict:
                                    lambda: prefill({"tokens": tokens}))
         log(f"lm {arch} prefill: {LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} "
             "tokens/s")
-        expect_launches(f"{arch} prefill", launched, {kernel: cfg.n_layers})
+        expect_launches(f"{arch} prefill", launched, kernels)
         if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)} not finite "
@@ -2186,7 +2231,7 @@ def run_lm() -> dict:
         prompt = tokens[:, :LM_CONSISTENCY]
         full, launched = run_app(f"lm {arch} forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
                                  lambda: prefill({"tokens": prompt}))
-        expect_launches(f"{arch} forward", launched, {kernel: cfg.n_layers})
+        expect_launches(f"{arch} forward", launched, kernels)
         # the decode steps double as a decode-rate window: four blocks of
         # DECODE_BLOCK steps, each timed between two synchronisations
         rates = []
@@ -2208,13 +2253,22 @@ def run_lm() -> dict:
         delta, scale, same = logit_gap(f"{arch} prefill", full, stepped)
         if not delta <= 1e-3 * scale or not same:
             raise AssertionError(f"{arch}: prefill and decode disagree")
-        if kernel == "ssd_scan":
-            # the same check on the plain chunked algorithm, with the same
-            # weights and prompt: a gap like the kernel's is the algorithm's
+        if "ssd_scan" in kernels:
+            # the same check on the plain versions (the chunked algorithm,
+            # and blocked attention where the model has attention), with the
+            # same weights and prompt: a gap like the kernels' is the
+            # algorithms'
             model.ssm = model.ssm._replace(ssd_impl="chunked")
-            plain = prefill({"tokens": prompt})
-            logit_gap(f"{arch} chunked (plain) forward", plain, stepped)
-            log(f"lm {arch} kernel vs chunked forward: max |dlogit| "
+            plain_impls = "chunked"
+            if "flash_attention" in kernels:
+                model.gqa = model.gqa._replace(attention_impl="blocked")
+                plain_impls = "chunked SSD + blocked attention"
+            plain, launched = run_app(f"lm {arch} plain forward {LM_BATCH}x{LM_CONSISTENCY}",
+                                      counts, lambda: prefill({"tokens": prompt}))
+            expect_launches(f"{arch} plain forward", launched,
+                            {name: 0 for name in kernels})
+            logit_gap(f"{arch} {plain_impls} (plain) forward", plain, stepped)
+            log(f"lm {arch} kernel vs {plain_impls} forward: max |dlogit| "
                 f"{float((full - plain).abs().max()):.3e}")
             del plain
         del model, prefill, full, stepped, steps, cache
@@ -2238,6 +2292,7 @@ def run_lm() -> dict:
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128      # repro's trainer defaults: 1,024 tokens
 SMOKE_STEPS, SMOKE_RESUME_AT = 10, 6
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_STEPS = 16, 4        # of mamba2-2.7b's 64 layers
+ZAMBA_TRAIN_STEPS = 4                                # zamba2-2.7b at its full config
 ZERO_LAYERS, ZERO_STEPS = 2, 3                       # qwen3-1.7b at full width, 2 layers
 EF_DIVISORS = ((32, "topk_compress_argmax"), (4, "topk_compress_bitonic"))   # k = n / d
 TRAIN_LR = 3e-4                                      # repro's trainer default
@@ -2293,40 +2348,61 @@ def max_rel(got, want) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def train_full_qwen3(counts: dict) -> None:
-    """(a): train() on qwen3-1.7b at its full config; each step's seconds
-    from the trainer's own log line, the median tokens/s of steps 2-7."""
+def train_full(arch: str, steps: int, counts: dict) -> list:
+    """train() on ``arch`` at its full config, ``steps`` steps of TRAIN_BATCH
+    x TRAIN_SEQ: finite losses and no flash_attention or ssd_scan launch
+    (blocked attention and chunked SSD, as repro trains); each step's
+    seconds from the trainer's own log line, the median tokens/s of steps
+    2 on (1 on when there are fewer than 4).  Returns the losses."""
     out = io.StringIO()
 
     def run():
         with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
-            return train("qwen3-1.7b", smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                         seq=TRAIN_SEQ, log_every=1, seed=SEED)
+            return train(arch, smoke=False, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         log_every=1, seed=SEED)
 
-    losses, launched = run_app(f"train qwen3-1.7b {TRAIN_STEPS} x {TRAIN_BATCH}x{TRAIN_SEQ}",
-                               counts, run)
+    losses, launched = run_app(f"train {arch} {steps} x {TRAIN_BATCH}x{TRAIN_SEQ}", counts, run)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_losses("train qwen3-1.7b", losses, TRAIN_STEPS)
+    check_losses(f"train {arch}", losses, steps)
+    expect_launches(f"train {arch} (blocked attention and chunked SSD, as repro trains)",
+                    launched, {"flash_attention": 0, "ssd_scan": 0})
+    secs = {int(m.group(1)): float(m.group(3)) for m in STEP_LINE.finditer(out.getvalue())}
+    if sorted(secs) != list(range(steps)):
+        raise AssertionError(f"train {arch}: log lines for steps {sorted(secs)}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first = 2 if steps >= 4 else 1
+    rates = [tokens / secs[s] for s in range(first, steps)]
+    log(f"train {arch}: {tokens} tokens a step; step seconds "
+        f"{[secs[s] for s in range(steps)]}; median tokens/s of steps "
+        f"{first}-{steps - 1} {statistics.median(rates):.1f}; peak device memory "
+        f"{peak:.3f} GiB; losses {losses}")
+    return losses
+
+
+def train_full_qwen3(counts: dict) -> None:
+    """(a): train() on qwen3-1.7b at its full config; the last loss below
+    the first."""
+    losses = train_full("qwen3-1.7b", TRAIN_STEPS, counts)
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train qwen3-1.7b: loss {losses[0]} -> {losses[-1]} did not fall")
-    expect_launches("train qwen3-1.7b (blocked attention, as repro trains)", launched,
-                    {"flash_attention": 0, "ssd_scan": 0})
-    secs = {int(m.group(1)): float(m.group(3)) for m in STEP_LINE.finditer(out.getvalue())}
-    if sorted(secs) != list(range(TRAIN_STEPS)):
-        raise AssertionError(f"train qwen3-1.7b: log lines for steps {sorted(secs)}")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    rates = [tokens / secs[s] for s in range(2, TRAIN_STEPS)]
-    log(f"train qwen3-1.7b: {tokens} tokens a step; step seconds "
-        f"{[secs[s] for s in range(TRAIN_STEPS)]}; median tokens/s of steps "
-        f"2-{TRAIN_STEPS - 1} {statistics.median(rates):.1f}; peak device memory "
-        f"{peak:.3f} GiB; losses {losses}")
 
 
-def pallas_backward_refused() -> None:
-    """(a), last: a model asked for the flash kernel cannot be trained; its
-    backward raises repro's NotImplementedError instead of leaving q, k, v
-    out of the graph."""
-    cfg = smoke_config(get_arch("qwen3-1.7b")).replace(attention_impl="pallas")
+def train_full_zamba2(counts: dict) -> None:
+    """(f): train() on zamba2-2.7b at its full config (2,422,670,240
+    parameters, fp32 AdamW: ~63 GiB at the update by qwen3's 7.02 x the
+    parameters), its shared attention block's gradient summed over its 9
+    applications."""
+    cfg = get_arch("zamba2-2.7b")
+    log(f"train zamba2-2.7b: full config, {cfg.n_layers} mamba layers in "
+        f"{cfg.n_layers // cfg.hybrid_period} superblocks, no depth cut")
+    train_full("zamba2-2.7b", ZAMBA_TRAIN_STEPS, counts)
+
+
+def pallas_backward_refused(arch: str, impl: dict) -> None:
+    """A model asked for the flash kernel or the SSD scan kernel cannot be
+    trained; its backward raises repro's NotImplementedError instead of
+    leaving the kernel's inputs out of the graph."""
+    cfg = smoke_config(get_arch(arch)).replace(**impl)
     model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
     model.requires_grad_(True)
     batch = shard_batch(lm_batch(0, 2, 64, cfg.vocab))
@@ -2334,10 +2410,9 @@ def pallas_backward_refused() -> None:
     try:
         loss.backward()
     except NotImplementedError as e:
-        log(f"train qwen3-1.7b smoke, attention_impl='pallas': backward raised "
-            f"NotImplementedError: {e}")
+        log(f"train {arch} smoke, {impl}: backward raised NotImplementedError: {e}")
     else:
-        raise AssertionError("a backward through the flash kernel did not raise")
+        raise AssertionError(f"{arch}: a backward through {impl} did not raise")
 
 
 def train_smoke_checks(counts: dict) -> None:
@@ -2526,7 +2601,7 @@ def run_train() -> dict:
     torch.cuda.empty_cache()
     counts: dict = {}
     train_full_qwen3(counts)
-    pallas_backward_refused()
+    pallas_backward_refused("qwen3-1.7b", {"attention_impl": "pallas"})
     torch.cuda.empty_cache()
     train_smoke_checks(counts)
     train_mamba_cut(counts)
@@ -2536,6 +2611,11 @@ def run_train() -> dict:
     torch.cuda.empty_cache()
     ef_run(flats, counts)
     del flats
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_zamba2(counts)
+    for impl in ({"attention_impl": "pallas"}, {"ssd_impl": "pallas"}):
+        pallas_backward_refused("zamba2-2.7b", impl)
     torch.cuda.empty_cache()
     return counts
 
@@ -2568,6 +2648,7 @@ def main() -> None:
     measured = check_kernels(rng)
     measured["flash_attention"] = check_flash(rng)
     measured["ssd_scan"] = check_ssd(rng)
+    shapes = check_zamba2_shapes(rng)
     measured.update(check_receive(rng))
     measured["flash_attention_bf16"] = check_flash_bf16(rng)
     check_inputs(rng)
@@ -2576,7 +2657,7 @@ def main() -> None:
     b_split(rng)
     f_timings(rng)
     a_timings(rng)
-    for name, m in measured.items():
+    for name, m in {**measured, **shapes}.items():
         log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "
             f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "

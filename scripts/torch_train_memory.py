@@ -1,13 +1,14 @@
 """Where a train step's device memory goes, stage by stage, on the card.
 
 Runs the stages of ``repro_torch.launch.steps.make_train_step`` one by one
-(forward, backward, clip, optimizer update, in-place apply) on qwen3-1.7b at
-its full width (``--layers`` cuts the depth), batches of 8 x 128 from
+(forward, backward, clip, optimizer update, in-place apply) on an arch at
+its full width (qwen3-1.7b unless ``--arch`` names another; ``--layers``
+cuts the depth, in whole superblocks for a hybrid), batches of 8 x 128 from
 ``LMDataPipeline``, and prints for each stage the memory allocated after it
 and the peak during it, in GiB and in units of the parameters' bytes; then
 the peak of ``make_train_step`` itself over the same steps.
 
-    python3 scripts/torch_train_memory.py [--layers 28] [--steps 3]
+    python3 scripts/torch_train_memory.py [--arch zamba2-2.7b] [--layers 28] [--steps 3]
 """
 
 import argparse
@@ -31,19 +32,21 @@ GIB = 2 ** 30
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=28)
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--layers", type=int, default=None, help="default: the arch's own")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     print("card:", card_info())
-    cfg = get_arch("qwen3-1.7b").replace(n_layers=args.layers)
+    cfg = get_arch(args.arch)
+    cfg = cfg.replace(n_layers=args.layers or cfg.n_layers)
     model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
     model.requires_grad_(True)
     params = model.param_tree()
     unit = sum(p.numel() * p.element_size() for p in params.values())
-    print(f"qwen3-1.7b, {args.layers} layers: parameters {unit / GIB:.3f} GiB")
+    print(f"{args.arch}, {cfg.n_layers} layers: parameters {unit / GIB:.3f} GiB")
     opt = adamw(lr=warmup_cosine(3e-4, 1, args.steps))
     state = opt.init(params)
     pipe = LMDataPipeline(8, 128, cfg.vocab, prefetch=False)

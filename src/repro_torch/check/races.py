@@ -37,6 +37,14 @@ program-ordered copy of the same bits (it participated in the replicated
 set); otherwise observing the "right" value is luck, not safety.  Accesses
 with differing values (the actual bug class) are always reported.
 
+The read's exemption holds in whichever order the pair reaches the detector.
+A session records an access after its store op, outside any lock they share,
+so a read can observe a write's bits and still be recorded first.  When the
+write is recorded later, it is excused against that read only under the same
+condition: the reader held its own copy of those bits when it read.
+``repro.check.races`` excuses any equal-valued read there, so it misses the
+race in that interleaving (ROADMAP, Queue 3).
+
 The port snapshots torch values (:func:`snapshot_value`): a ``detach().clone()``
 of every tensor leaf, kept on the value's own device.  A clone, because the
 store hands out the stored tensor itself and a snapshot that kept a reference
@@ -89,13 +97,14 @@ def values_equal(a, b) -> bool:
 class _Access:
     """Last access of one kind by one thread to one name."""
 
-    __slots__ = ("clock", "site", "value", "kind")
+    __slots__ = ("clock", "site", "value", "kind", "replica")
 
-    def __init__(self, clock: int, site: str, value, kind: str):
+    def __init__(self, clock: int, site: str, value, kind: str, replica: bool = False):
         self.clock = clock
         self.site = site
         self.value = value
         self.kind = kind
+        self.replica = replica      # a read whose thread held its own copy of the bits
 
 
 class RaceDetector:
@@ -199,7 +208,8 @@ class RaceDetector:
                         self.benign_replicated += 1
                     else:
                         races.append(("read-write", u, acc.site, acc.kind))
-            reads[tid] = _Access(vc[tid], site, value, kind)
+            replica = own is not None and values_equal(own.value, value)
+            reads[tid] = _Access(vc[tid], site, value, kind, replica)
         else:  # "write" | "inc"
             for u, acc in writes.items():
                 if not unordered(acc, u):
@@ -213,7 +223,7 @@ class RaceDetector:
             for u, acc in reads.items():
                 if not unordered(acc, u):
                     continue
-                if values_equal(value, acc.value):
+                if acc.replica and values_equal(value, acc.value):
                     self.benign_replicated += 1
                 else:
                     races.append(("read-write", u, acc.site, acc.kind))

@@ -1,14 +1,22 @@
-"""Model assembly: decoder LMs and Mamba2 stacks, for serving and training.
+"""Model assembly: decoder LMs, Mamba2 stacks and zamba2 hybrids, for serving
+and training.
 
-Port of :mod:`repro.models.build` for two families:
+Port of :mod:`repro.models.build` for three families:
 
   dense — decoder transformer, GQA attention and a dense FFN (one segment of
       ``"self"`` blocks; ``prefill_last_only`` honoured).
   ssm — Mamba2 (SSD) stack, attention-free.
+  hybrid — zamba2: ``n_layers // hybrid_period`` superblocks, each
+      ``hybrid_period`` Mamba2 blocks followed by one attention + FFN block
+      whose weights all superblocks share (``shared_block``, one weight set
+      whose gradient sums over its applications).  Decode keeps one KV cache
+      per application.  Built by :class:`SSMLM`, as ``repro``'s
+      ``build_ssm`` builds both.
 
 ``repro``'s stacked parameters with a leading layer axis become an
 ``nn.ModuleList`` with one ``nn.ModuleDict`` per layer, under the same
-names (``segments/seg0/<l>/attn/wq``, ``segments/mamba/<l>/mamba/in_proj``),
+names (``segments/seg0/<l>/attn/wq``, ``segments/mamba/<l>/mamba/in_proj``;
+the hybrid's doubly stacked ``segments/mamba/<s>/<i>/...`` a list of lists),
 so :func:`repro_torch.models.convert.load_jax_params` carries a JAX parameter
 tree across by name.  A model holds its weights and exposes ``repro``'s
 surface without the params argument: ``loss_fn(batch) -> (loss, metrics)``,
@@ -21,12 +29,13 @@ tensors by their dotted names.
 Training follows the config as ``repro`` does: ``remat`` ("none", "full":
 each layer recomputed in the backward pass, "dots": each layer recomputed
 but for its matmuls' outputs, by ``torch.utils.checkpoint``'s selective
-policy), ``bwd_bf16_boundary`` (the decoder's block outputs),
-``chunked_ce`` / ``ce_chunk`` and ``z_loss`` (the decoder's loss; the SSM
-stack's takes ``z_loss`` only, as ``repro``'s does).
+policy; the hybrid's unit is the superblock), ``bwd_bf16_boundary`` (the
+attention blocks' outputs), ``chunked_ce`` / ``ce_chunk`` and ``z_loss``
+(the decoder's loss; the SSM and hybrid stacks' take ``z_loss`` only, as
+``repro``'s do).
 
-Families ``moe``, ``vlm``, ``audio`` and ``hybrid``, MLA attention, MTP and
-the int8 KV cache raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+Families ``moe``, ``vlm`` and ``audio``, MLA attention, MTP and the int8 KV
+cache raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -52,7 +61,6 @@ from repro_torch.models.mamba import (MambaCache, SSMConfig, init_mamba2,
 # what this slice does not build yet, each with its place in ROADMAP Queue 1
 # item 11's deferred order
 DEFERRED_FAMILIES = {
-    "hybrid": "deferred item 1 (zamba2's shared attention block)",
     "moe": "deferred item 3 (MoE)",
     "vlm": "deferred item 3 (cross-attention)",
     "audio": "deferred item 3 (the audio encoder)",
@@ -174,6 +182,39 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# the attention + FFN block (the decoder's layers, the hybrid's shared block)
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ArchConfig, gqa: GQAConfig, device, generator) -> nn.ModuleDict:
+    dtype = _dtype(cfg)
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    return nn.ModuleDict({
+        "norm1": _init_norm(cfg, dtype, device),
+        "norm2": _init_norm(cfg, dtype, device),
+        "attn": init_gqa(gqa, **kw),
+        "ffn": init_dense_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, bias=cfg.ffn_bias, **kw),
+    })
+
+
+def _block_fwd(blk, x: torch.Tensor, cfg: ArchConfig, gqa: GQAConfig) -> torch.Tensor:
+    """``repro``'s ``_block_fwd`` for a ``"self"`` block."""
+    x = x + gqa_attend(blk["attn"], _norm(x, blk["norm1"], cfg), gqa)
+    x = x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
+    if cfg.bwd_bf16_boundary:
+        x = bf16_boundary(x)          # bf16 backward across block boundaries
+    return x
+
+
+def _block_decode(blk, cache: KVCache, x: torch.Tensor, cfg: ArchConfig, gqa: GQAConfig,
+                  pos: int) -> torch.Tensor:
+    """``repro``'s ``_block_decode``; ``cache`` is updated in place."""
+    _, a = gqa_decode(blk["attn"], cache, _norm(x, blk["norm1"], cfg), gqa, pos)
+    x = x + a
+    return x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
+
+
+# ---------------------------------------------------------------------------
 # decoder LM (dense)
 # ---------------------------------------------------------------------------
 
@@ -182,28 +223,11 @@ class DecoderLM(Model):
     def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
         super().__init__(cfg, device, generator)
         self.gqa = _gqa_cfg(cfg)
-        dtype = _dtype(cfg)
-        kw = dict(dtype=dtype, device=device, generator=generator)
-
-        def block() -> nn.ModuleDict:
-            return nn.ModuleDict({
-                "norm1": _init_norm(cfg, dtype, device),
-                "norm2": _init_norm(cfg, dtype, device),
-                "attn": init_gqa(self.gqa, **kw),
-                "ffn": init_dense_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind,
-                                      bias=cfg.ffn_bias, **kw),
-            })
-
-        self.segments = nn.ModuleDict(
-            {"seg0": nn.ModuleList([block() for _ in range(cfg.n_layers)])})
+        self.segments = nn.ModuleDict({"seg0": nn.ModuleList(
+            [_init_block(cfg, self.gqa, device, generator) for _ in range(cfg.n_layers)])})
 
     def _block(self, blk, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        x = x + gqa_attend(blk["attn"], _norm(x, blk["norm1"], cfg), self.gqa)
-        x = x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
-        if cfg.bwd_bf16_boundary:
-            x = bf16_boundary(x)          # bf16 backward across block boundaries
-        return x
+        return _block_fwd(blk, x, self.cfg, self.gqa)
 
     def _trunk(self, tokens) -> torch.Tensor:
         x = self._embed(tokens)
@@ -239,38 +263,59 @@ class DecoderLM(Model):
                          for _ in range(self.cfg.n_layers)]}
 
     def decode_step(self, cache, tokens, pos: int):
-        cfg = self.cfg
         x = self._embed(tokens)
         for blk, c in zip(self.segments["seg0"], cache["seg0"]):
-            _, a = gqa_decode(blk["attn"], c, _norm(x, blk["norm1"], cfg), self.gqa, pos)
-            x = x + a
-            x = x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
+            x = _block_decode(blk, c, x, self.cfg, self.gqa, pos)
         return self._logits(x), cache
 
 
 # ---------------------------------------------------------------------------
-# SSM (mamba2)
+# SSM (mamba2) and hybrid (zamba2)
 # ---------------------------------------------------------------------------
 
 
 class SSMLM(Model):
+    """The ``ssm`` family's Mamba2 stack, or the ``hybrid`` family's: each of
+    ``n_layers // hybrid_period`` superblocks runs ``hybrid_period`` Mamba2
+    blocks, then the one ``shared_block``."""
+
     def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
         super().__init__(cfg, device, generator)
         self.ssm = _ssm_cfg(cfg)
+        self.hybrid = cfg.family == "hybrid"
         dtype = _dtype(cfg)
-        self.segments = nn.ModuleDict({"mamba": nn.ModuleList([
-            nn.ModuleDict({"norm": _init_norm(cfg, dtype, device),
-                           "mamba": init_mamba2(self.ssm, dtype=dtype, device=device,
-                                                generator=generator)})
-            for _ in range(cfg.n_layers)])})
+
+        def mamba_block() -> nn.ModuleDict:
+            return nn.ModuleDict({"norm": _init_norm(cfg, dtype, device),
+                                  "mamba": init_mamba2(self.ssm, dtype=dtype, device=device,
+                                                       generator=generator)})
+
+        if self.hybrid:
+            self.gqa = _gqa_cfg(cfg)
+            self.period = cfg.hybrid_period
+            self.n_super = cfg.n_layers // self.period
+            self.segments = nn.ModuleDict({"mamba": nn.ModuleList([
+                nn.ModuleList([mamba_block() for _ in range(self.period)])
+                for _ in range(self.n_super)])})
+            self.shared_block = _init_block(cfg, self.gqa, device, generator)
+        else:
+            self.segments = nn.ModuleDict({"mamba": nn.ModuleList(
+                [mamba_block() for _ in range(cfg.n_layers)])})
 
     def _block(self, blk, x: torch.Tensor) -> torch.Tensor:
         return x + mamba2_forward(blk["mamba"], _norm(x, blk["norm"], self.cfg), self.ssm)
 
+    def _superblock(self, blocks, x: torch.Tensor) -> torch.Tensor:
+        for blk in blocks:
+            x = self._block(blk, x)
+        return _block_fwd(self.shared_block, x, self.cfg, self.gqa)
+
     def forward(self, batch) -> torch.Tensor:
         x = self._embed(batch["tokens"])
-        for blk in self.segments["mamba"]:
-            x = _layer(self._block, self.cfg.remat, blk, x)
+        # the remat unit is a layer, or the hybrid's superblock (repro's scan body)
+        fn = self._superblock if self.hybrid else self._block
+        for unit in self.segments["mamba"]:
+            x = _layer(fn, self.cfg.remat, unit, x)
         return self._logits(x)
 
     def loss_fn(self, batch):
@@ -279,15 +324,35 @@ class SSMLM(Model):
                                      z_loss=self.cfg.z_loss)
         return loss, {"ce": loss}
 
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, List[MambaCache]]:
-        return {"mamba": [init_mamba_cache(self.ssm, batch, _dtype(self.cfg), device=self.device)
-                          for _ in range(self.cfg.n_layers)]}
+    def _mamba_cache(self, batch: int) -> MambaCache:
+        return init_mamba_cache(self.ssm, batch, _dtype(self.cfg), device=self.device)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, list]:
+        """``{"mamba": [MambaCache] * n_layers}``; the hybrid's is
+        ``{"mamba": [[MambaCache] * period] * n_super, "attn": [KVCache] *
+        n_super}``, a KV cache for each application of the shared block."""
+        if not self.hybrid:
+            return {"mamba": [self._mamba_cache(batch) for _ in range(self.cfg.n_layers)]}
+        return {"mamba": [[self._mamba_cache(batch) for _ in range(self.period)]
+                          for _ in range(self.n_super)],
+                "attn": [init_gqa_cache(self.gqa, batch, max_len, _cache_dtype(self.cfg),
+                                        device=self.device)
+                         for _ in range(self.n_super)]}
+
+    def _mamba_decode(self, blk, cache: MambaCache, x: torch.Tensor) -> torch.Tensor:
+        _, y = mamba2_decode(blk["mamba"], cache, _norm(x, blk["norm"], self.cfg), self.ssm)
+        return x + y
 
     def decode_step(self, cache, tokens, pos: int):
         x = self._embed(tokens)
-        for blk, c in zip(self.segments["mamba"], cache["mamba"]):
-            _, y = mamba2_decode(blk["mamba"], c, _norm(x, blk["norm"], self.cfg), self.ssm)
-            x = x + y
+        if not self.hybrid:
+            for blk, c in zip(self.segments["mamba"], cache["mamba"]):
+                x = self._mamba_decode(blk, c, x)
+            return self._logits(x), cache
+        for blocks, caches, kv in zip(self.segments["mamba"], cache["mamba"], cache["attn"]):
+            for blk, c in zip(blocks, caches):
+                x = self._mamba_decode(blk, c, x)
+            x = _block_decode(self.shared_block, kv, x, self.cfg, self.gqa, pos)
         return self._logits(x), cache
 
 
@@ -312,7 +377,7 @@ def build_model(cfg: ArchConfig, device=None,
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1 "
                                   "item 11, deferred item 4)")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     if generator is None:

@@ -24,7 +24,9 @@ def load_jax_params(module: nn.Module, tree: Mapping[str, Any], path: str = "") 
     ``jax.tree.map(np.asarray, model.init(key))`` gives — into ``module``
     in place, on its device and in its dtypes.  Names must match exactly and
     shapes must agree; a stacked leaf of a ``ModuleList`` is split along its
-    leading layer axis.  Returns ``module``."""
+    leading layer axis, and a list of lists takes the next axis in turn
+    (``repro``'s hybrid superblocks, ``segments/mamba/<leaf>`` of shape
+    ``(n_super, period, ...)``).  Returns ``module``."""
     if isinstance(module, nn.ParameterDict):
         _same_keys(path, set(module.keys()), set(tree))
         for name, p in module.items():
@@ -60,7 +62,7 @@ def _same_keys(path: str, ours: set, theirs: set) -> None:
 def _jax_leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
     """The leaf of ``tree`` under the port's dotted parameter ``name``: a
     numeric part that is no key of its dict indexes the stacked layer axis
-    of the leaf below it."""
+    of the leaf below it (two such parts, a doubly stacked leaf's two)."""
     node, layers = tree, []
     for part in name.split("."):
         if part.isdigit() and part not in node:

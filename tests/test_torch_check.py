@@ -246,15 +246,27 @@ def test_inc_inc_commutes():
     assert _both(_inc_inc) == []
 
 
+def _real(ctx) -> bool:
+    """Not the spawn-time lint's dry run (which runs every tid's proc in the
+    driver thread, one after another)."""
+    return type(ctx).__name__ != "LintCtx"
+
+
 def _barrier_edge(pkg, with_barrier):
     sess = _host(pkg)
     ref = sess.def_global("x", pkg.f32(0))
     bar = sess.barrier()
+    written = threading.Event()
 
     def proc(ctx):
         if ctx.tid == 0:
             ref.set(pkg.f32(42.0))
+            written.set()
         bar.enter() if with_barrier else None
+        if not with_barrier and ctx.tid == 1 and _real(ctx):
+            # no STEP edge, so the checker sees none: the read comes after
+            # the write's record, which both packages flag in any schedule
+            assert written.wait(timeout=60)
         out = ref.get() if ctx.tid == 1 else None
         if not with_barrier:
             bar.enter()     # keep barrier arity identical for the lint
@@ -270,6 +282,55 @@ def test_barrier_creates_happens_before_edge():
     assert _both(lambda pkg: _barrier_edge(pkg, True)) == []
     flagged = _both(lambda pkg: _barrier_edge(pkg, False))
     assert {f.kind for f in flagged} == {"read-write"}
+
+
+def _read_recorded_first(pkg):
+    """tid 0's store write lands, tid 1's get observes its bits and is
+    recorded, and only then is tid 0's write recorded: the interleaving in
+    which a session records an access after its store op.  No STEP edge
+    orders the two, and tid 1 never wrote the bits itself."""
+    sess = _host(pkg)
+    ref = sess.def_global("x", pkg.f32(0))
+    bar = sess.barrier()
+    stored, read_recorded = threading.Event(), threading.Event()
+    record = sess.checker.on_access
+
+    def on_access(name, kind, value):
+        if kind == "write":
+            stored.set()
+            assert read_recorded.wait(timeout=60)
+        record(name, kind, value)
+        if kind == "read":
+            read_recorded.set()
+
+    sess.checker.on_access = on_access
+    seen = []
+
+    def proc(ctx):
+        if _real(ctx):
+            if ctx.tid == 0:
+                ref.set(pkg.f32(42.0))
+            else:
+                assert stored.wait(timeout=60)
+                seen.append(float(ref.get()))
+        bar.enter()
+        return None
+
+    sess.run(proc)
+    found = sess.findings()
+    sess.checker.disable()
+    assert seen == [42.0]
+    return found
+
+
+def test_race_found_when_the_read_is_recorded_first():
+    """The port flags the unordered read whichever record comes first;
+    repro's write-side check excuses a read that saw equal bits, so it
+    misses this interleaving (a difference of repro's, recorded, not
+    mirrored)."""
+    flagged = _read_recorded_first(PORT)
+    assert [(f.kind, f.tids) for f in flagged] == [("read-write", (0, 1))]
+    assert _read_recorded_first(JAX) == []
 
 
 def _handoff(pkg):

@@ -47,7 +47,7 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/core/session.py" in names
     lm = ["configs/__init__.py", "configs/base.py", "configs/qwen3_1_7b.py",
-          "configs/mamba2_2_7b.py", "models/common.py", "models/attention.py",
+          "configs/mamba2_2_7b.py", "configs/zamba2_2_7b.py", "models/common.py", "models/attention.py",
           "models/ffn.py", "models/mamba.py", "models/build.py", "models/convert.py",
           "kernels/flash_attention/ref.py", "kernels/flash_attention/ops.py",
           "kernels/flash_attention/kernel.py", "kernels/ssd_scan/ref.py",
@@ -64,7 +64,8 @@ def test_port_files_exist():
     for source in ("flash_attention.cu", "ssd_scan.cu", "accumulate.cu", "scatter_add.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / source).is_file(), source
     for example in ("torch_fault_tolerance_drill.py", "torch_train_lm.py",
-                    "torch_quickstart.py"):
+                    "torch_quickstart.py", "torch_logistic_regression.py",
+                    "torch_pagerank_graph.py", "torch_serve_lm.py"):
         assert f"examples/{example}" in names
     assert len(PORT_FILES) > 20
 

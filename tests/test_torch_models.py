@@ -33,7 +33,8 @@ from repro_torch.models.common import params  # noqa: E402
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVED = {"qwen3-1.7b": dict(attention_impl="pallas"),
-          "mamba2-2.7b": dict(ssd_impl="pallas")}
+          "mamba2-2.7b": dict(ssd_impl="pallas"),
+          "zamba2-2.7b": dict(attention_impl="pallas", ssd_impl="pallas")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -266,7 +267,7 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(n for n, c in configs.ARCHS.items()
-                                        if c.family not in ("dense", "ssm")
+                                        if c.family not in ("dense", "ssm", "hybrid")
                                         or c.attn_kind == "mla"))
 def test_deferred_archs_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -286,3 +287,54 @@ def test_load_jax_params_checks_names_and_shapes():
         load_jax_params(tm, bad)
     with pytest.raises(KeyError, match="final_norm"):
         load_jax_params(tm, {k: v for k, v in jp.items() if k != "final_norm"})
+
+
+# -- the hybrid family's parameters ------------------------------------------------
+
+
+def test_hybrid_carries_doubly_stacked_leaves():
+    """repro's segments/mamba/<leaf> is (n_super, period, ...): superblock s,
+    block i of the port gets [s, i]; the shared block is one unstacked set."""
+    jm, jp, tm = _model_pair("zamba2-2.7b")
+    cfg = tm.cfg
+    n_super, period = cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period
+    stacked = jp["segments"]["mamba"]["mamba"]["in_proj"]
+    assert stacked.shape[:2] == (n_super, period) and n_super > 1 and period > 1
+    for s in range(n_super):
+        for i in range(period):
+            np.testing.assert_array_equal(
+                tm.segments["mamba"][s][i]["mamba"]["in_proj"].detach().numpy(), stacked[s, i])
+    np.testing.assert_array_equal(tm.shared_block["attn"]["wq"].detach().numpy(),
+                                  jp["shared_block"]["attn"]["wq"])
+
+
+def test_hybrid_load_rejects_a_wrong_shape():
+    jm, jp, tm = _model_pair("zamba2-2.7b")
+    bad = jax.tree.map(lambda a: a, jp)
+    a_log = np.asarray(bad["segments"]["mamba"]["mamba"]["A_log"])
+    bad["segments"]["mamba"]["mamba"]["A_log"] = a_log[..., :-1]
+    with pytest.raises(ValueError, match="/segments/mamba/0/0/mamba/A_log"):
+        load_jax_params(tm, bad)
+    bad = jax.tree.map(lambda a: a, jp)
+    bad["shared_block"]["ffn"] = {k: v[:-1] for k, v in jp["shared_block"]["ffn"].items()}
+    with pytest.raises(ValueError, match="/shared_block/ffn/"):
+        load_jax_params(tm, bad)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_hybrid_shares_one_block_and_counts_repros_parameters(smoke):
+    """One weight set for the shared block, and as many parameters as
+    repro's init (at the full config by jax.eval_shape, no weights made)."""
+    jcfg, tcfg = jconfigs.get_arch("zamba2-2.7b"), configs.get_arch("zamba2-2.7b")
+    if smoke:
+        jcfg, tcfg = jconfigs.smoke_config(jcfg), configs.smoke_config(tcfg)
+    shapes = jax.eval_shape(jax_build_model(jcfg).init, jax.random.PRNGKey(0))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    shared = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes["shared_block"]))
+    tm = build_model(tcfg, device="meta", generator=torch.Generator())
+    assert sum(p.numel() for p in tm.parameters()) == want
+    assert sum(p.numel() for p in tm.shared_block.parameters()) == shared
+    names = [n for n in tm.param_tree() if "attn" in n or "ffn" in n]
+    assert names and all(n.startswith("shared_block.") for n in names)
+    if not smoke:
+        assert want == 2_422_670_240 and shared == 104_862_720

@@ -2,7 +2,7 @@
 
 Weights come from repro's ``init`` and are carried across by
 ``load_jax_params`` (optimizer state by ``load_jax_opt_state``); batches are
-the same numpy draws.  ``loss_fn`` for the dense and ssm families at
+the same numpy draws.  ``loss_fn`` for the dense, ssm and hybrid families at
 ``smoke_config``: the loss within 1e-5 relative, every gradient leaf within
 1e-4 of its max |g|, plain and under ``chunked_ce``, ``z_loss`` and
 ``bwd_bf16_boundary``; ``remat`` full and dots give the gradients of none.
@@ -43,7 +43,7 @@ from repro_torch.optim import AdamState, adamw, warmup_cosine  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-FAMILIES = ["qwen3-1.7b", "mamba2-2.7b"]
+FAMILIES = ["qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b"]
 VARIANTS = {"plain": {}, "chunked_ce": dict(chunked_ce=True, ce_chunk=100),
             "z_loss": dict(z_loss=1e-3), "bwd_bf16_boundary": dict(bwd_bf16_boundary=True)}
 
@@ -93,14 +93,80 @@ def _close_grads(ours: dict, theirs: dict, scale=1e-4):
 # -- loss_fn and its gradients ----------------------------------------------------------
 
 
+class _Recorded(torch.autograd.Function):
+    """The port's bf16 boundary, its fp32 cotangent kept under its label."""
+
+    @staticmethod
+    def forward(ctx, x, label, cots):
+        ctx.label, ctx.cots = label, cots
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.cots[ctx.label] = g.detach().clone()
+        return g.to(torch.bfloat16).to(g.dtype), None, None
+
+
+def _one_rounding(monkeypatch, tm, batch):
+    """The port's gradients under ``bwd_bf16_boundary``, with repro made to
+    round each boundary's cotangent as the port did.
+
+    Each package rounds a boundary's fp32 cotangent to bf16.  An element
+    that lies within the packages' fp32 difference of a bf16 midpoint
+    rounds one way in one and the other way in the other: a step of 2^-8 of
+    it that reaches every gradient upstream.  So the port's fp32 cotangents
+    are recorded, one a boundary it passed, and repro's boundary (inside a
+    layer scan, one trace for all layers) takes the recorded cotangent
+    nearest its own, records its own under that one's label and returns the
+    port's rounding of it.  Returns the port's (loss, metrics, grads) and
+    both packages' fp32 cotangents by label."""
+    from repro.models import build as jbuild
+    from repro_torch.models import build as tbuild
+    ours, theirs = {}, {}
+    labels = iter(range(1 << 20))
+    monkeypatch.setattr(tbuild, "bf16_boundary",
+                        lambda x: _Recorded.apply(x, next(labels), ours))
+    out = _grads(tm, batch)
+    recorded = {k: g.numpy() for k, g in ours.items()}
+
+    def port_rounding(g):
+        g = np.array(g)                 # a copy: the callback's buffer is read-only
+        label = min(recorded, key=lambda k: float(np.abs(recorded[k] - g).max()))
+        theirs[label] = g
+        return torch.from_numpy(recorded[label]).to(torch.bfloat16).float().numpy()
+
+    @jax.custom_vjp
+    def jax_boundary(x):
+        return x
+
+    def bwd(_, g):
+        return (jax.pure_callback(port_rounding, jax.ShapeDtypeStruct(g.shape, g.dtype), g),)
+
+    jax_boundary.defvjp(lambda x: (x, None), bwd)
+    monkeypatch.setattr(jbuild, "bf16_boundary", jax_boundary)
+    return out, recorded, theirs
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("arch", FAMILIES)
-def test_loss_fn_and_grads_vs_repro(arch, variant):
+def test_loss_fn_and_grads_vs_repro(arch, variant, monkeypatch):
+    """Under ``bwd_bf16_boundary`` repro rounds each boundary's cotangent as
+    the port did (``_one_rounding``), and the two packages' fp32 cotangents
+    are held to each other as the gradients are."""
     jm, jp, tm = _model_pair(arch, **VARIANTS[variant])
     batch = _batch(tm.cfg.vocab)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if variant == "bwd_bf16_boundary":
+        (loss, metrics, grads), ours, theirs = _one_rounding(monkeypatch, tm, batch)
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(jp, jbatch)
-    loss, metrics, grads = _grads(tm, batch)
+    if variant == "bwd_bf16_boundary":
+        assert theirs.keys() == ours.keys() and len(ours) == (
+            tm.cfg.n_layers // tm.cfg.hybrid_period if tm.cfg.family == "hybrid"
+            else tm.cfg.n_layers if tm.cfg.family == "dense" else 0)
+        _close_grads({k: torch.from_numpy(v) for k, v in ours.items()},
+                     {k: torch.from_numpy(v) for k, v in theirs.items()})
+    else:
+        loss, metrics, grads = _grads(tm, batch)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     assert set(metrics) == set(jmetrics)
     np.testing.assert_allclose(metrics["ce"].item(), float(jmetrics["ce"]), rtol=1e-5)
@@ -369,7 +435,9 @@ def test_forward_only_calls_are_unchanged():
 
 
 @pytest.mark.parametrize("arch,impl", [("qwen3-1.7b", dict(attention_impl="pallas")),
-                                       ("mamba2-2.7b", dict(ssd_impl="pallas"))])
+                                       ("mamba2-2.7b", dict(ssd_impl="pallas")),
+                                       ("zamba2-2.7b", dict(attention_impl="pallas")),
+                                       ("zamba2-2.7b", dict(ssd_impl="pallas"))])
 def test_a_model_on_the_kernels_cannot_train(arch, impl):
     _, _, tm = _model_pair(arch, **impl)
     params = tm.param_tree()

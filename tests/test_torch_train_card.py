@@ -26,7 +26,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b"])
 def test_train_step_on_the_card_equals_the_cpus(cuda, arch):
     """One smoke_config step from the same weights and batch: loss, grad norm
     and parameters within 1e-4 of the CPU's."""
