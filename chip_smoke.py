@@ -48,7 +48,11 @@ Phases, in order; any failure raises and the run exits non-zero:
              and logreg's shapes in f32 / bf16 (a_timings).  flash_attention
              and ssd_scan also at zamba2-2.7b's prefill shapes (MHA at head
              dim 80; N 64), held and timed as at qwen3's and mamba2's
-             (check_zamba2_shapes; logged, not in the kernels line).
+             (check_zamba2_shapes), and flash_attention at the moe
+             family's: moonshot-v1-16b-a3b's MHA (16 heads, head dim 128)
+             in fp32 and bf16, deepseek-v3-671b's MLA (128 heads, dk 192,
+             dv 128) in fp32, SDPA beside it where SDPA takes dk != dv
+             (check_moe_shapes; logged, not in the kernels line).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -127,9 +131,20 @@ Phases, in order; any failure raises and the run exits non-zero:
              plain forwards too (chunked SSD, and blocked attention for
              zamba2), on the same weights; (c) serve(smoke=False) with 4 x 32
              prompt tokens and 32 generated.  Each model is freed before the
-             next.
-             Last, qwen3-1.7b in bf16: one 4 x 2048 prefill, the flash
-             kernel's bf16 body once per layer.
+             next.  The moe family runs in fp32 cut in whole layers:
+             moonshot-v1-16b-a3b at 24 of 48 (E x 24 a forward),
+             deepseek-v3-671b (MLA, dk 192 / dv 128) at 4 of 61 (its 3
+             dense layers and one MoE layer; E x 4); in (b) the forward
+             runs at capacity factor 8.0 (deepseek 16.0: its random
+             router's skew, MOE_FORWARD_CAPACITY), each MoE layer's input is kept by
+             a forward hook and no expert's load may pass C, the decode
+             steps at E / k (C = the batch), the routed experts of the two
+             are compared and the kernel forward is printed against the
+             blocked one; (c) serves them under smoke_config (neither whole
+             config fits one card).
+             Last, qwen3-1.7b and moonshot-v1-16b-a3b (all 48 layers) in
+             bf16: one 4 x 2048 prefill each, the flash kernel's bf16 body
+             once per layer.
 8. train   — training on the card (device left at its default): (a)
              train() on qwen3-1.7b at its full config (2.03 B parameters,
              fp32, AdamW + warmup_cosine + clip 1.0, LMDataPipeline), 8
@@ -161,7 +176,14 @@ Phases, in order; any failure raises and the run exits non-zero:
              config (2.42 B parameters, fp32, as (a)), 4 steps: finite
              losses, no flash_attention or ssd_scan launch, step seconds,
              tokens/s and peak memory printed; then a backward through
-             either kernel on its smoke_config must raise.
+             either kernel on its smoke_config must raise; (g)
+             moonshot-v1-16b-a3b at full width cut to 3 layers (1 dense +
+             2 MoE, 1.93 B parameters), 4 steps of 8 x 128: finite losses
+             and balance losses, no flash_attention launch, step seconds,
+             tokens/s and peak printed; (h) deepseek-v3-671b's
+             smoke_config (MLA + MoE + MTP), 10 steps on the card against
+             the CPU (within 1e-4), and a backward through the flash kernel
+             (MLA on it) must raise.
 9. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
@@ -225,6 +247,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.ffn import MoE, capacity, expert_loads, routed_experts  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw, compressed_accumulate, compression_ratio, ef_init, warmup_cosine, zero1_gather_params,
     zero1_init, zero1_update)
@@ -283,14 +306,32 @@ KERNELS = {
                            "src/repro/kernels/sparse_update/kernel.py:39"),
 }
 
-# the LM serving path: each model at its full published config, with the
+# the LM serving path: each model at its full published widths, with the
 # prefill implementations that run its kernels and the launches of each in
 # one prefill forward (zamba2: 9 applications of the shared attention block,
-# 54 mamba layers); prefill batch x length
+# 54 mamba layers); the moe family in fp32, its configs' dtype, cut in whole
+# layers, the leading dense layers and MoE layers after them kept (whole,
+# moonshot-v1-16b-a3b holds 28.4 B parameters, 113.5 GB, and
+# deepseek-v3-671b ~2.7 TB); prefill batch x length
 LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28}),
              "mamba2-2.7b": ({"ssd_impl": "pallas"}, {"ssd_scan": 64}),
              "zamba2-2.7b": ({"attention_impl": "pallas", "ssd_impl": "pallas"},
-                             {"flash_attention": 9, "ssd_scan": 54})}
+                             {"flash_attention": 9, "ssd_scan": 54}),
+             "moonshot-v1-16b-a3b": ({"attention_impl": "pallas", "n_layers": 24},
+                                     {"flash_attention": 24}),
+             "deepseek-v3-671b": ({"attention_impl": "pallas", "n_layers": 4},
+                                  {"flash_attention": 4})}
+# one bf16 prefill each, whole: qwen3-1.7b, and moonshot-v1-16b-a3b's 48
+# layers (56.8 GB of bf16 weights, the router fp32)
+LM_BF16 = ("qwen3-1.7b", "moonshot-v1-16b-a3b")
+# (b) for the moe family: the forward drops slots past C batch-wide, while
+# decode routes one step at a time (so tests/test_archs_smoke.py raises the
+# capacity too, to 8.0); the forward's capacity factor is one at which no
+# expert of the 4 x 256 forward passes C (checked on each MoE layer's
+# input, recorded by a forward hook): 8.0, but deepseek's random weights
+# send 409 of its 8,192 slots to one expert (12.8 x the mean of 32; C 256
+# at 8.0), so 16.0 there (C 512); at E / k the decode step's C is its batch
+MOE_FORWARD_CAPACITY = {"moonshot-v1-16b-a3b": 8.0, "deepseek-v3-671b": 16.0}
 LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
@@ -1048,43 +1089,65 @@ def check_flash(rng) -> dict:
     return flash_prefill(rng, "qwen3-1.7b", 8, 2, 128)
 
 
-def flash_prefill(rng, arch: str, kh: int, g: int, d: int) -> dict:
-    """flash_attention at ``arch``'s prefill shape (B 4, T 2048, KH, G, d)
-    in fp32: held to its plain version, timed a call and by graph replay
-    beside the plain version and SDPA on the same inputs (K/V expanded to
-    the KH x G heads)."""
-    b, t = LM_BATCH, LM_PREFILL
-    q = cuda_normal(rng, (b, t, kh, g, d))
-    k, v = (cuda_normal(rng, (b, t, kh, d)) for _ in range(2))
+def flash_prefill(rng, arch: str, kh: int, g: int, d: int, dv: int = None,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """flash_attention at ``arch``'s prefill shape (B 4, T 2048, KH, G, dk
+    ``d``, dv ``dv`` or ``d``) in ``dtype``: held to its plain version at
+    FLASH_TOL, timed a call and by graph replay beside the plain version
+    and SDPA on the same inputs (K/V expanded to the KH x G heads; where
+    SDPA refuses dk != dv, ``library_ms`` is None)."""
+    b, t, dv = LM_BATCH, LM_PREFILL, dv or d
+    q = cuda_normal(rng, (b, t, kh, g, d), dtype=dtype)
+    k = cuda_normal(rng, (b, t, kh, d), dtype=dtype)
+    v = cuda_normal(rng, (b, t, kh, dv), dtype=dtype)
     out = fa_ops.flash_attention(q, k, v, causal=True)
     ref = gqa_plain(q, k, v, causal=True, q_offset=0)
-    tol = FLASH_TOL[torch.float32]
-    torch.testing.assert_close(out, ref, rtol=tol, atol=tol,
-                               msg=lambda m: f"flash_attention at the {arch} prefill shape: {m}")
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"flash_attention at the {arch} prefill shape "
+                                             f"({dtype}): {m}")
+    max_abs_err = float((out.float() - ref.float()).abs().max())
+    del out, ref
     visible = t * (t + 1) // 2                       # causal (query, key) pairs per head
-    nbytes, flops = 4 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * b * kh * g * visible * d
-    # the fp32 body does each product as three TF32 products on the tensor
-    # cores (3xTF32): its bound; the fp32 pipes' is printed beside it
-    tb, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-    fp32_tb, _ = bound_ms(nbytes, flops)
+    size = q.element_size()
+    nbytes = size * (q.numel() + k.numel() + v.numel() + q.numel() // d * dv)
+    flops = 2.0 * b * kh * g * visible * (d + dv)    # q.k and p.v over the visible pairs
+    if dtype == torch.float32:
+        # the fp32 body does each product as three TF32 products on the
+        # tensor cores (3xTF32): its bound; the fp32 pipes' is printed beside it
+        tb, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        fp32_tb, _ = bound_ms(nbytes, flops)
+        rates = (f"3xTF32: 3 x {flops / 1e9:.1f} GFLOP at 495 TFLOP/s on the tensor cores, "
+                 f"the bound recorded), {fp32_tb:.4f} ms (the flops on the fp32 pipes at 67 "
+                 "TFLOP/s)")
+    else:
+        tb, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        rates = f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s of bf16)"
+    log(f"flash_attention {DTYPE_NAMES[dtype]} bounds at the {arch} prefill shape: {tb:.4f} "
+        f"ms ({by}; {rates}, bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; shared memory "
+        f"per CTA {smem_bytes(d, dv, dtype)} bytes")
     qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
     ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
-    log(f"flash_attention fp32 bounds at the {arch} prefill shape: {tb:.4f} ms ({by}; "
-        f"3xTF32: 3 x {flops / 1e9:.1f} GFLOP at 495 TFLOP/s on the tensor cores, the bound "
-        f"recorded), {fp32_tb:.4f} ms (the flops on the fp32 pipes at 67 TFLOP/s), bytes "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; shared memory per CTA "
-        f"{smem_bytes(d, d, torch.float32)} bytes")
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    try:
+        sdpa()
+    except RuntimeError as e:                        # no SDPA backend for these head dims
+        log(f"SDPA at the {arch} prefill shape ({DTYPE_NAMES[dtype]}, dk {d}, dv {dv}) "
+            f"refused: {e}")
+        library_ms = library_device_ms = None
+    else:
+        library_ms, library_device_ms = time_ms(sdpa, 20), graph_ms(sdpa, 20)
     return dict(
-        shape=f"q ({b}, {t}, {kh}, {g}, {d}) f32, k/v ({b}, {t}, {kh}, {d}), causal",
-        max_abs_err=float((out - ref).abs().max()),
+        shape=f"q ({b}, {t}, {kh}, {g}, {d}) {DTYPE_NAMES[dtype]}, k ({b}, {t}, {kh}, {d}), "
+              f"v ({b}, {t}, {kh}, {dv}), causal",
+        max_abs_err=max_abs_err,
         ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
         device_ms=graph_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
         plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=True, q_offset=0), 5),
-        bound_ms=tb, bound_by=by,
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), 20),
-        library_device_ms=graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), 20))
+        bound_ms=tb, bound_by=by, library_ms=library_ms, library_device_ms=library_device_ms)
 
 
 def ssd_inputs(rng, b, t, h, p, g, n):
@@ -1176,6 +1239,19 @@ def check_zamba2_shapes(rng) -> dict:
     scan at N 64 (F's tiles were sized at mamba2's 128)."""
     return {"flash_attention@zamba2-2.7b": flash_prefill(rng, "zamba2-2.7b", 32, 1, 80),
             "ssd_scan@zamba2-2.7b": ssd_prefill(rng, "zamba2-2.7b", 80, 64, 1, 64, 128)}
+
+
+def check_moe_shapes(rng) -> dict:
+    """E at the moe family's prefill shapes: moonshot-v1-16b-a3b's MHA (16
+    heads, G 1, head dim 128) in fp32 and bf16, and deepseek-v3-671b's MLA
+    (128 heads, G 1, dk = nope 128 + rope 64 = 192 against dv 128: the
+    wrapper takes its 256 instance) in fp32."""
+    return {"flash_attention@moonshot-v1-16b-a3b": flash_prefill(
+                rng, "moonshot-v1-16b-a3b", 16, 1, 128),
+            "flash_attention_bf16@moonshot-v1-16b-a3b": flash_prefill(
+                rng, "moonshot-v1-16b-a3b", 16, 1, 128, dtype=BF16),
+            "flash_attention@deepseek-v3-671b": flash_prefill(
+                rng, "deepseek-v3-671b", 128, 1, 192, dv=128)}
 
 
 def f_timings(rng) -> dict:
@@ -2169,28 +2245,67 @@ def logit_gap(label: str, full, stepped) -> tuple:
     return delta, scale, same
 
 
-def run_lm_bf16_prefill(counts: dict) -> None:
-    """qwen3-1.7b at its full config in bf16, prefill 4 x 2048: the flash
+def run_lm_bf16_prefill(arch: str, counts: dict) -> None:
+    """``arch`` at its full config in bf16, prefill 4 x 2048: the flash
     kernel's bf16 body once per layer; the logits finite, of the full
     shape."""
-    cfg = get_arch("qwen3-1.7b").replace(attention_impl="pallas", dtype="bfloat16")
+    cfg = get_arch(arch).replace(attention_impl="pallas", dtype="bfloat16")
     model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm {arch} bf16: {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB)")
     prefill = make_prefill_step(model)
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), device="cuda",
                            dtype=torch.int32, generator=torch.Generator("cuda").manual_seed(SEED))
     prefill({"tokens": tokens[:, :LM_CONSISTENCY]})      # warm-up, not counted
     t0 = time.perf_counter()
-    logits, launched = run_app(f"lm qwen3-1.7b bf16 prefill {LM_BATCH}x{LM_PREFILL}", counts,
+    logits, launched = run_app(f"lm {arch} bf16 prefill {LM_BATCH}x{LM_PREFILL}", counts,
                                lambda: prefill({"tokens": tokens}))
-    log(f"lm qwen3-1.7b bf16 prefill: "
+    log(f"lm {arch} bf16 prefill: "
         f"{LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s")
-    expect_launches("qwen3-1.7b bf16 prefill", launched,
+    expect_launches(f"{arch} bf16 prefill", launched,
                     {"flash_attention_bf16": cfg.n_layers, "flash_attention": cfg.n_layers})
     if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
-        raise AssertionError("qwen3-1.7b bf16 prefill: logits not finite or of the wrong shape")
+        raise AssertionError(f"{arch} bf16 prefill: logits not finite or of the wrong shape")
     del model, prefill, logits
     torch.cuda.empty_cache()
+
+
+def moe_inputs(model) -> tuple:
+    """A forward hook on each MoE layer of ``model`` that keeps the layer's
+    input and config of each call (references only: nothing is computed or
+    read back while the model runs); returns (the kept calls, the hooks)."""
+    calls: list = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: calls.append((mod, *args)))
+             for m in model.modules() if isinstance(m, MoE)]
+    return calls, hooks
+
+
+def no_expert_over_capacity(label: str, calls: list) -> None:
+    """Every MoE call in ``calls`` routed no expert more slots than its C."""
+    worst = []
+    for mod, x, cfg in calls:
+        loads, c = expert_loads(mod, x, cfg)
+        worst.append((int(loads.max()), c))
+    if not worst or any(load > c for load, c in worst):
+        raise AssertionError(f"{label}: an expert's load passed its capacity: {worst}")
+    log(f"lm {label}: {len(worst)} MoE calls, largest expert load / C "
+        f"{max(load for load, _ in worst)} / {worst[0][1]}: no slot dropped")
+
+
+def routing_differences(forward_calls: list, decode_calls: list) -> int:
+    """The (token, MoE layer) pairs whose routed experts differ between the
+    forward's calls (one a layer, B x T tokens) and the decode steps' (one
+    a layer a step, B tokens): a near tie that the two paths' rounding
+    breaks apart."""
+    n_moe = len(forward_calls)
+    want = [routed_experts(*c).reshape(LM_BATCH, LM_CONSISTENCY, -1) for c in forward_calls]
+    differ = 0
+    for j, call in enumerate(decode_calls):
+        step, layer = divmod(j, n_moe)
+        differ += int((routed_experts(*call) != want[layer][:, step]).any(-1).sum())
+    return differ
 
 
 def run_lm() -> dict:
@@ -2207,7 +2322,8 @@ def run_lm() -> dict:
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         log(f"lm {arch}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32), "
-            f"built in {time.perf_counter() - t0:.2f} s")
+            f"{cfg.n_layers} of {get_arch(arch).n_layers} layers, built in "
+            f"{time.perf_counter() - t0:.2f} s")
         prefill = make_prefill_step(model)
         tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), generator=gen,
                                device="cuda", dtype=torch.int32)
@@ -2229,9 +2345,25 @@ def run_lm() -> dict:
         # (b) forward vs decode steps on one prompt: the kernel inside the
         # model, with its causal mask or chunk carry, against the cache path
         prompt = tokens[:, :LM_CONSISTENCY]
+        moe = getattr(model, "moe_cfg", None)
+        if moe is not None:
+            model.moe_cfg = moe._replace(capacity_factor=MOE_FORWARD_CAPACITY[arch])
+            forward_calls, hooks = moe_inputs(model)
         full, launched = run_app(f"lm {arch} forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
                                  lambda: prefill({"tokens": prompt}))
         expect_launches(f"{arch} forward", launched, kernels)
+        if moe is not None:
+            for h in hooks:
+                h.remove()
+            no_expert_over_capacity(f"{arch} forward at capacity "
+                                    f"{MOE_FORWARD_CAPACITY[arch]}", forward_calls)
+            decode_calls, hooks = moe_inputs(model)
+            model.moe_cfg = moe._replace(capacity_factor=moe.n_experts / moe.top_k)
+            c_decode = capacity(model.moe_cfg._replace(data_groups=1), LM_BATCH)
+            if c_decode < LM_BATCH:
+                raise AssertionError(f"{arch}: decode capacity {c_decode} < batch {LM_BATCH}")
+            log(f"lm {arch} decode: capacity factor E/k = {moe.n_experts / moe.top_k:.4f}, "
+                f"C {c_decode} at batch {LM_BATCH}: no slot can drop")
         # the decode steps double as a decode-rate window: four blocks of
         # DECODE_BLOCK steps, each timed between two synchronisations
         rates = []
@@ -2248,8 +2380,16 @@ def run_lm() -> dict:
                     torch.cuda.synchronize()
                     rates.append(LM_BATCH * DECODE_BLOCK / (time.perf_counter() - t0))
             stepped = torch.stack(steps, dim=1)
+        if moe is not None:
+            for h in hooks:
+                h.remove()
+            log(f"lm {arch}: routed experts differ between the forward and the decode steps "
+                f"at {routing_differences(forward_calls, decode_calls)} of "
+                f"{len(decode_calls) * LM_BATCH} (token, MoE layer) pairs")
+            del forward_calls, decode_calls
         log(f"lm {arch} decode, batch {LM_BATCH}, tokens/s per {DECODE_BLOCK}-step block: "
-            f"{[round(r, 1) for r in rates]} (median {statistics.median(rates):.1f})")
+            f"{[round(r, 1) for r in rates]} (median {statistics.median(rates):.1f}); peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         delta, scale, same = logit_gap(f"{arch} prefill", full, stepped)
         if not delta <= 1e-3 * scale or not same:
             raise AssertionError(f"{arch}: prefill and decode disagree")
@@ -2263,6 +2403,16 @@ def run_lm() -> dict:
             if "flash_attention" in kernels:
                 model.gqa = model.gqa._replace(attention_impl="blocked")
                 plain_impls = "chunked SSD + blocked attention"
+        elif moe is not None:
+            # the kernel's forward against blocked attention's, at the
+            # forward's capacity, on the same weights and prompt
+            model.moe_cfg = moe._replace(capacity_factor=MOE_FORWARD_CAPACITY[arch])
+            if cfg.attn_kind == "mla":
+                model.mla = model.mla._replace(attention_impl="blocked")
+            else:
+                model.gqa = model.gqa._replace(attention_impl="blocked")
+            plain_impls = "blocked attention"
+        if "ssd_scan" in kernels or moe is not None:
             plain, launched = run_app(f"lm {arch} plain forward {LM_BATCH}x{LM_CONSISTENCY}",
                                       counts, lambda: prefill({"tokens": prompt}))
             expect_launches(f"{arch} plain forward", launched,
@@ -2274,13 +2424,19 @@ def run_lm() -> dict:
         del model, prefill, full, stepped, steps, cache
         torch.cuda.empty_cache()
 
-        # (c) the serving loop at full width (prefill by decode + greedy)
-        toks, _ = run_app(f"lm {arch} serve", counts, lambda: serve(
-            arch, smoke=False, batch=LM_BATCH, prompt_len=32, gen=32, seed=SEED))
-        if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        # (c) the serving loop (prefill by decode + greedy): at full width,
+        # but the moe family's under smoke_config (its whole configs do not
+        # fit one card; its decode rate at full width is (b)'s)
+        smoke = cfg.family == "moe"
+        toks, _ = run_app(f"lm {arch} serve{' (smoke_config)' if smoke else ''}", counts,
+                          lambda: serve(arch, smoke=smoke, batch=LM_BATCH, prompt_len=32,
+                                        gen=32, seed=SEED))
+        vocab = smoke_config(cfg).vocab if smoke else cfg.vocab
+        if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= vocab:
             raise AssertionError(f"{arch} serve: tokens {toks.shape} out of range")
         torch.cuda.empty_cache()
-    run_lm_bf16_prefill(counts)
+    for arch in LM_BF16:
+        run_lm_bf16_prefill(arch, counts)
     return counts
 
 
@@ -2293,6 +2449,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128      # repro's trainer defaults:
 SMOKE_STEPS, SMOKE_RESUME_AT = 10, 6
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_STEPS = 16, 4        # of mamba2-2.7b's 64 layers
 ZAMBA_TRAIN_STEPS = 4                                # zamba2-2.7b at its full config
+# moonshot-v1-16b-a3b at full width cut to 1 dense + 2 MoE layers (1.93 B
+# parameters, ~54 GB at AdamW's update); deepseek-v3-671b's smoke_config
+# (MLA + MoE + MTP) on the card against the CPU
+MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 3, 4
 ZERO_LAYERS, ZERO_STEPS = 2, 3                       # qwen3-1.7b at full width, 2 layers
 EF_DIVISORS = ((32, "topk_compress_argmax"), (4, "topk_compress_bitonic"))   # k = n / d
 TRAIN_LR = 3e-4                                      # repro's trainer default
@@ -2318,10 +2478,11 @@ class _Tee:
             s.flush()
 
 
-def train_loop(model, opt, steps: int, device):
+def train_loop(model, opt, steps: int, device, metrics: list = None):
     """``steps`` steps of ``make_train_step`` on ``LMDataPipeline``'s batches,
     as ``train`` runs them; returns the losses and each step's seconds (a
-    step ends when its loss reaches the host)."""
+    step ends when its loss reaches the host).  Each step's metrics (ce,
+    aux, ...) are appended to ``metrics`` where one is given."""
     step_fn = make_train_step(model, opt)
     params = model.param_tree()
     state = opt.init(params)
@@ -2331,9 +2492,11 @@ def train_loop(model, opt, steps: int, device):
         for _ in range(steps):
             t0 = time.perf_counter()
             step, batch = pipe.next()
-            params, state, loss, _ = step_fn(params, state, batch, step)
+            params, state, loss, m = step_fn(params, state, batch, step)
             losses.append(float(loss))
             secs.append(time.perf_counter() - t0)
+            if metrics is not None:
+                metrics.append({k: float(v) for k, v in m.items()})
     finally:
         pipe.close()
     return losses, secs
@@ -2415,26 +2578,34 @@ def pallas_backward_refused(arch: str, impl: dict) -> None:
         raise AssertionError(f"{arch}: a backward through {impl} did not raise")
 
 
-def train_smoke_checks(counts: dict) -> None:
-    """(b): smoke_config on the card against the port's CPU path from the
-    same weights and batches; then train() stopped at a checkpoint and
-    resumed, against its uninterrupted run."""
-    cfg = smoke_config(get_arch("qwen3-1.7b"))
+def card_vs_cpu(arch: str, counts: dict) -> None:
+    """``arch``'s smoke_config on the card against the port's CPU path from
+    the same weights and batches, SMOKE_STEPS steps: losses within
+    CARD_VS_CPU_RTOL."""
+    cfg = smoke_config(get_arch(arch))
     weights = build_model(cfg, device="cpu").state_dict()
     losses = []
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, device=dev)
         model.load_state_dict(weights)
         opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, SMOKE_STEPS))
-        (run, _), _ = run_app(f"train qwen3-1.7b smoke {SMOKE_STEPS} steps on {dev}", counts,
+        (run, _), _ = run_app(f"train {arch} smoke {SMOKE_STEPS} steps on {dev}", counts,
                               lambda: train_loop(model, opt, SMOKE_STEPS, dev))
         losses.append(run)
     cpu_losses, card_losses = losses
     rel = max_rel(card_losses, cpu_losses)
-    log(f"train smoke, card against CPU: max relative loss difference {rel:.3e} (limit "
-        f"{CARD_VS_CPU_RTOL}); card losses {card_losses}")
+    log(f"train {arch} smoke, card against CPU: max relative loss difference {rel:.3e} "
+        f"(limit {CARD_VS_CPU_RTOL}); card losses {card_losses}")
     if not rel <= CARD_VS_CPU_RTOL:
-        raise AssertionError(f"train smoke: the card's losses are {rel:.3e} off the CPU's")
+        raise AssertionError(f"train {arch} smoke: the card's losses are {rel:.3e} off the "
+                             "CPU's")
+
+
+def train_smoke_checks(counts: dict) -> None:
+    """(b): smoke_config on the card against the port's CPU path from the
+    same weights and batches; then train() stopped at a checkpoint and
+    resumed, against its uninterrupted run."""
+    card_vs_cpu("qwen3-1.7b", counts)
 
     kw = dict(smoke=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS)
     full = train("qwen3-1.7b", steps=SMOKE_STEPS, **kw)
@@ -2474,6 +2645,36 @@ def train_mamba_cut(counts: dict) -> None:
     log(f"train mamba2-2.7b: step seconds {secs}; tokens/s of steps 1-"
         f"{MAMBA_TRAIN_STEPS - 1} {[round(tokens / s, 1) for s in secs[1:]]}; peak device "
         f"memory {peak:.3f} GiB; losses {losses}")
+
+
+def train_moonshot_cut(counts: dict) -> None:
+    """(g): moonshot-v1-16b-a3b at full width, its depth cut to 1 dense + 2
+    MoE layers: finite losses and balance losses (aux), no flash_attention
+    launch (blocked attention, as repro trains)."""
+    cfg = get_arch("moonshot-v1-16b-a3b").replace(n_layers=MOONSHOT_TRAIN_LAYERS)
+    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train moonshot-v1-16b-a3b: depth cut to {MOONSHOT_TRAIN_LAYERS} of 48 layers "
+        f"({cfg.first_dense_layers} dense, {MOONSHOT_TRAIN_LAYERS - cfg.first_dense_layers} "
+        f"MoE), {n_params} parameters ({n_params * 16 / 1e9:.2f} GB of fp32 params, grads "
+        "and two moments)")
+    opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, MOONSHOT_TRAIN_STEPS))
+    metrics: list = []
+    (losses, secs), launched = run_app(
+        f"train moonshot-v1-16b-a3b {MOONSHOT_TRAIN_LAYERS} layers {MOONSHOT_TRAIN_STEPS} x "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}", counts,
+        lambda: train_loop(model, opt, MOONSHOT_TRAIN_STEPS, "cuda", metrics))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_losses("train moonshot-v1-16b-a3b", losses, MOONSHOT_TRAIN_STEPS)
+    aux = [m["aux"] for m in metrics]
+    check_losses("train moonshot-v1-16b-a3b balance losses", aux, MOONSHOT_TRAIN_STEPS)
+    expect_launches("train moonshot-v1-16b-a3b (blocked attention, as repro trains)",
+                    launched, {"flash_attention": 0})
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train moonshot-v1-16b-a3b: step seconds {secs}; tokens/s of steps 1-"
+        f"{MOONSHOT_TRAIN_STEPS - 1} {[round(tokens / s, 1) for s in secs[1:]]}; peak device "
+        f"memory {peak:.3f} GiB; losses {losses}; aux {aux}")
+    del model, opt
 
 
 def zero1_run(counts: dict):
@@ -2616,6 +2817,13 @@ def run_train() -> dict:
     train_full_zamba2(counts)
     for impl in ({"attention_impl": "pallas"}, {"ssd_impl": "pallas"}):
         pallas_backward_refused("zamba2-2.7b", impl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moonshot_cut(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu("deepseek-v3-671b", counts)
+    pallas_backward_refused("deepseek-v3-671b", {"attention_impl": "pallas"})
     torch.cuda.empty_cache()
     return counts
 
@@ -2649,6 +2857,7 @@ def main() -> None:
     measured["flash_attention"] = check_flash(rng)
     measured["ssd_scan"] = check_ssd(rng)
     shapes = check_zamba2_shapes(rng)
+    shapes.update(check_moe_shapes(rng))
     measured.update(check_receive(rng))
     measured["flash_attention_bf16"] = check_flash_bf16(rng)
     check_inputs(rng)

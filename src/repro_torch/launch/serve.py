@@ -2,7 +2,9 @@
 
 Port of :mod:`repro.launch.serve`, with the same schedule: the prompt is
 prefilled by repeated decode steps (cache-exact), then ``gen`` greedy decode
-steps follow.  Runs on the card unless ``device="cpu"`` is passed.
+steps follow.  Serves every family ``build_model`` builds (dense, moe with
+GQA or MLA, ssm, hybrid).  Runs on the card unless ``device="cpu"`` is
+passed.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 32 --gen 32

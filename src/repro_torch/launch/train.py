@@ -30,9 +30,9 @@ from repro_torch.utils.tree import tree_leaves
 
 def batch_for(cfg, shape, pipeline_step_batch):
     """The token pipeline's batch as the arch family's input dict: the
-    ``dense``, ``ssm`` and ``hybrid`` families take it as it is (``repro``'s
-    audio and vlm inputs come with the families ``build_model`` does not
-    build yet)."""
+    ``dense``, ``moe``, ``ssm`` and ``hybrid`` families take it as it is
+    (``repro``'s audio and vlm inputs come with the families ``build_model``
+    does not build yet)."""
     return dict(pipeline_step_batch)
 
 

@@ -1,13 +1,21 @@
-"""Attention: GQA/MHA (+ qk-norm, qkv-bias, RoPE) for prefill and decode.
+"""Attention: GQA/MHA (+ qk-norm, qkv-bias, RoPE) and MLA, for prefill and
+decode.
 
-Port of the GQA half of :mod:`repro.models.attention`.  Prefill runs one of
+Port of the GQA and MLA parts of :mod:`repro.models.attention`.  Prefill runs one of
 three implementations of the same function (``GQAConfig.attention_impl``):
 ``"naive"`` materialises the scores, ``"blocked"`` is the online softmax
 over KV blocks in plain PyTorch, and ``"pallas"`` (the name kept from
 ``repro``) is the hand-written flash attention kernel
 (:mod:`repro_torch.kernels.flash_attention`).  Decode attends one query step
 over the KV cache with :func:`naive_attention`, as ``repro`` does; no kernel
-runs there.  MLA and cross-attention wait for later slices (ROADMAP).
+runs there.
+
+MLA (deepseek-v3's multi-head latent attention) expands its compressed
+cache into per-head keys (nope + rope, dk = dn + dr) and values (dv) for
+prefill, so the flash kernel runs it as MHA with dk != dv; its decode is
+the *absorbed* form, queries projected into the compressed c-space, so the
+cache stays at ``kv_lora_rank + qk_rope_dim`` a token.  Cross-attention
+waits for a later slice (ROADMAP Queue 1 item 11, deferred item 3).
 """
 
 from __future__ import annotations
@@ -197,4 +205,124 @@ def gqa_decode(p, cache: KVCache, x_t, cfg: GQAConfig, pos: int):
     # mask out cache positions beyond pos via the causal mask with q_offset=pos
     out = naive_attention(qg, cache.k, cache.v, causal=True, q_offset=pos)
     out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    return cache, torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+class MLAConfig(NamedTuple):
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    attention_impl: str = "blocked"   # naive | blocked | pallas (the CUDA kernel)
+    block_k: int = 512
+
+
+def init_mla(cfg: MLAConfig, *, dtype=torch.float32, device=None,
+             generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+    D, H = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    return params({
+        "w_dq": dense_init((D, r_q), in_axis=0, **kw),
+        "q_norm": torch.ones((r_q,), dtype=dtype, device=device),
+        "w_uq": dense_init((r_q, H, dn + dr), in_axis=0, **kw),
+        "w_dkv": dense_init((D, r_kv), in_axis=0, **kw),
+        "kv_norm": torch.ones((r_kv,), dtype=dtype, device=device),
+        "w_kr": dense_init((D, dr), in_axis=0, **kw),
+        "w_uk": dense_init((r_kv, H, dn), in_axis=0, **kw),
+        "w_uv": dense_init((r_kv, H, dv), in_axis=0, **kw),
+        "wo": dense_init((H, dv, D), in_axis=1, **kw),
+    })
+
+
+def _mla_q(p, x, cfg: MLAConfig, positions):
+    cq = rms_norm(torch.einsum("btd,dr->btr", x, p["w_dq"]), p["q_norm"])
+    q = torch.einsum("btr,rhk->bthk", cq, p["w_uq"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, x, cfg: MLAConfig, positions):
+    c_kv = rms_norm(torch.einsum("btd,dr->btr", x, p["w_dkv"]), p["kv_norm"])
+    k_rope = torch.einsum("btd,dk->btk", x, p["w_kr"])[:, :, None, :]   # shared head
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attend(p, x, cfg: MLAConfig, *, positions=None) -> torch.Tensor:
+    """Train/prefill MLA: expand c_kv to per-head K/V and attend, every head
+    its own KV group (KH = H, G = 1; dk = dn + dr, dv = v_head_dim)."""
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, device=x.device).expand(B, T)
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = torch.einsum("btr,rhk->bthk", c_kv, p["w_uk"])
+    v = torch.einsum("btr,rhk->bthk", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)                          # (B, T, H, dn+dr)
+    del q_nope, q_rope
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    del k_nope, c_kv
+    out = _run_attention(q.reshape(B, T, H, 1, dn + dr), k, v, causal=True,
+                         impl=cfg.attention_impl, block_k=cfg.block_k)
+    del q, k, v
+    out = out.reshape(B, T, H, cfg.v_head_dim)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S, kv_lora_rank) — the compressed cache
+    k_rope: torch.Tensor  # (B, S, qk_rope_dim)
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+    )
+
+
+def mla_decode(p, cache: MLACache, x_t, cfg: MLAConfig, pos: int):
+    """Absorbed-matrix MLA decode: score/readout directly in c-space.
+
+    scores_h(s) = q_nope_h · (W_uk_h c_s) + q_rope_h · k_rope_s
+                = (W_uk_hᵀ q_nope_h) · c_s + q_rope_h · k_rope_s
+    out_h       = Σ_s p_h(s) (W_uv_h c_s) = W_uv_h (Σ_s p_h(s) c_s)
+
+    x_t (B, 1, D), pos int — returns (cache, out); the new entries are
+    written into ``cache`` in place, as :func:`gqa_decode`'s are.  The
+    absorbed query is made in the model's dtype, the scores and readout in
+    fp32, and the readout cast back to the model's dtype before ``w_uv``,
+    as ``repro`` orders them."""
+    B = x_t.shape[0]
+    positions = torch.full((B, 1), pos, device=x_t.device)
+    q_nope, q_rope = _mla_q(p, x_t, cfg, positions)                  # (B, 1, H, ·)
+    c_t, kr_t = _mla_ckv(p, x_t, cfg, positions)                     # (B, 1, r), (B, 1, dr)
+    cache.c_kv[:, pos:pos + 1] = c_t.to(cache.c_kv.dtype)
+    cache.k_rope[:, pos:pos + 1] = kr_t.to(cache.k_rope.dtype)
+    c_kv = cache.c_kv.float()
+
+    q_c = torch.einsum("bthk,rhk->bthr", q_nope, p["w_uk"])          # absorbed query
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    s_c = torch.einsum("bthr,bsr->bths", q_c.float(), c_kv)
+    s_r = torch.einsum("bthk,bsk->bths", q_rope.float(), cache.k_rope.float())
+    scores = (s_c + s_r) * scale                                     # (B, 1, H, S)
+    spos = torch.arange(c_kv.shape[1], device=x_t.device)
+    scores = scores.masked_fill((spos > pos)[None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o_c = torch.einsum("bths,bsr->bthr", w, c_kv)                    # (B, 1, H, r)
+    out = torch.einsum("bthr,rhk->bthk", o_c.to(x_t.dtype), p["w_uv"])
     return cache, torch.einsum("bthk,hkd->btd", out, p["wo"])

@@ -1,10 +1,17 @@
-"""Model assembly: decoder LMs, Mamba2 stacks and zamba2 hybrids, for serving
-and training.
+"""Model assembly: decoder LMs (dense and MoE), Mamba2 stacks and zamba2
+hybrids, for serving and training.
 
-Port of :mod:`repro.models.build` for three families:
+Port of :mod:`repro.models.build` for four families:
 
   dense — decoder transformer, GQA attention and a dense FFN (one segment of
       ``"self"`` blocks; ``prefill_last_only`` honoured).
+  moe — decoder transformer whose first ``first_dense_layers`` blocks have
+      a dense FFN (``"self_wide"``, ``d_ff_dense`` wide; segment ``seg0``)
+      and the rest a Mixture-of-Experts FFN (``"self_moe"``; ``seg1``),
+      with GQA or MLA attention; the blocks carry the MoE balance loss
+      (``aux``) that ``loss_fn`` adds.  deepseek-v3's MTP head (``mtp``:
+      ``proj``, one ``self_wide`` block, three norms) adds its next-next-
+      token CE times ``mtp_weight``.
   ssm — Mamba2 (SSD) stack, attention-free.
   hybrid — zamba2: ``n_layers // hybrid_period`` superblocks, each
       ``hybrid_period`` Mamba2 blocks followed by one attention + FFN block
@@ -34,13 +41,13 @@ attention blocks' outputs), ``chunked_ce`` / ``ce_chunk`` and ``z_loss``
 (the decoder's loss; the SSM and hybrid stacks' take ``z_loss`` only, as
 ``repro``'s do).
 
-Families ``moe``, ``vlm`` and ``audio``, MLA attention, MTP and the int8 KV
-cache raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+Families ``vlm`` and ``audio``, ``moe_impl="ep"`` and the int8 KV cache
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -49,19 +56,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (GQAConfig, KVCache, gqa_attend, gqa_decode,
-                                          init_gqa, init_gqa_cache)
-from repro_torch.models.common import (bf16_boundary, chunked_softmax_cross_entropy,
+from repro_torch.models.attention import (GQAConfig, KVCache, MLACache, MLAConfig, gqa_attend,
+                                          gqa_decode, init_gqa, init_gqa_cache, init_mla,
+                                          init_mla_cache, mla_attend, mla_decode)
+from repro_torch.models.common import (Tree, bf16_boundary, chunked_softmax_cross_entropy,
                                        dense_init, embed_init, layer_norm, params, rms_norm,
                                        softmax_cross_entropy)
-from repro_torch.models.ffn import dense_ffn, init_dense_ffn
+from repro_torch.models.ffn import EP_DEFERRED, MoEConfig, dense_ffn, init_dense_ffn, init_moe
 from repro_torch.models.mamba import (MambaCache, SSMConfig, init_mamba2,
                                       init_mamba_cache, mamba2_decode, mamba2_forward)
 
 # what this slice does not build yet, each with its place in ROADMAP Queue 1
 # item 11's deferred order
 DEFERRED_FAMILIES = {
-    "moe": "deferred item 3 (MoE)",
     "vlm": "deferred item 3 (cross-attention)",
     "audio": "deferred item 3 (the audio encoder)",
 }
@@ -92,6 +99,35 @@ def _gqa_cfg(cfg: ArchConfig) -> GQAConfig:
         causal=cfg.causal,
         attention_impl=cfg.attention_impl,
         block_k=cfg.block_k,
+    )
+
+
+def _mla_cfg(cfg: ArchConfig) -> MLAConfig:
+    return MLAConfig(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta,
+        attention_impl=cfg.attention_impl,
+        block_k=cfg.block_k,
+    )
+
+
+def _moe_cfg(cfg: ArchConfig, data_groups: int) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        d_ff_expert=cfg.d_ff_expert,
+        n_shared=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor,
+        impl=cfg.moe_impl,
+        aux_loss_weight=cfg.aux_loss_weight,
+        data_groups=data_groups,
     )
 
 
@@ -185,87 +221,191 @@ class Model(nn.Module):
 # the attention + FFN block (the decoder's layers, the hybrid's shared block)
 # ---------------------------------------------------------------------------
 
+AttnConfig = Union[GQAConfig, MLAConfig]
 
-def _init_block(cfg: ArchConfig, gqa: GQAConfig, device, generator) -> nn.ModuleDict:
+
+def _init_attn(attn: AttnConfig, **kw) -> nn.ParameterDict:
+    return init_mla(attn, **kw) if isinstance(attn, MLAConfig) else init_gqa(attn, **kw)
+
+
+def _init_block(cfg: ArchConfig, attn: AttnConfig, device, generator, *, ffn: str = "dense",
+                moe_cfg: Optional[MoEConfig] = None) -> nn.ModuleDict:
+    """``repro``'s ``_init_block``: ``ffn`` "dense" (``d_ff`` wide),
+    "dense_wide" (``d_ff_dense``, or ``d_ff`` where that is 0) or "moe"
+    (under the key ``moe``, as in ``repro``)."""
     dtype = _dtype(cfg)
     kw = dict(dtype=dtype, device=device, generator=generator)
-    return nn.ModuleDict({
-        "norm1": _init_norm(cfg, dtype, device),
-        "norm2": _init_norm(cfg, dtype, device),
-        "attn": init_gqa(gqa, **kw),
-        "ffn": init_dense_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, bias=cfg.ffn_bias, **kw),
-    })
+    blk = {"norm1": _init_norm(cfg, dtype, device), "norm2": _init_norm(cfg, dtype, device),
+           "attn": _init_attn(attn, **kw)}
+    if ffn == "moe":
+        blk["moe"] = init_moe(moe_cfg, **kw)
+    else:
+        width = (cfg.d_ff_dense or cfg.d_ff) if ffn == "dense_wide" else cfg.d_ff
+        blk["ffn"] = init_dense_ffn(cfg.d_model, width, kind=cfg.ffn_kind, bias=cfg.ffn_bias,
+                                    **kw)
+    return nn.ModuleDict(blk)
 
 
-def _block_fwd(blk, x: torch.Tensor, cfg: ArchConfig, gqa: GQAConfig) -> torch.Tensor:
-    """``repro``'s ``_block_fwd`` for a ``"self"`` block."""
-    x = x + gqa_attend(blk["attn"], _norm(x, blk["norm1"], cfg), gqa)
-    x = x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
+def _attend(p, x: torch.Tensor, attn: AttnConfig) -> torch.Tensor:
+    if isinstance(attn, MLAConfig):
+        return mla_attend(p, x, attn)
+    return gqa_attend(p, x, attn)
+
+
+def _block_fwd(blk, x: torch.Tensor, aux, cfg: ArchConfig, attn: AttnConfig,
+               moe_cfg: Optional[MoEConfig] = None, kind: str = "self"):
+    """``repro``'s ``_block_fwd`` for a ``"self"``, ``"self_wide"`` or
+    ``"self_moe"`` block: ``(x, aux)``, a MoE block's balance loss added to
+    ``aux``."""
+    x = x + _attend(blk["attn"], _norm(x, blk["norm1"], cfg), attn)
+    h = _norm(x, blk["norm2"], cfg)
+    if kind == "self_moe":
+        y, al = blk["moe"](h, moe_cfg)
+        aux = aux + al
+    else:
+        y = dense_ffn(blk["ffn"], h, kind=cfg.ffn_kind)
+    x = x + y
     if cfg.bwd_bf16_boundary:
         x = bf16_boundary(x)          # bf16 backward across block boundaries
-    return x
+    return x, aux
 
 
-def _block_decode(blk, cache: KVCache, x: torch.Tensor, cfg: ArchConfig, gqa: GQAConfig,
-                  pos: int) -> torch.Tensor:
-    """``repro``'s ``_block_decode``; ``cache`` is updated in place."""
-    _, a = gqa_decode(blk["attn"], cache, _norm(x, blk["norm1"], cfg), gqa, pos)
+def _block_decode(blk, cache: Union[KVCache, MLACache], x: torch.Tensor, cfg: ArchConfig,
+                  attn: AttnConfig, pos: int, moe_cfg: Optional[MoEConfig] = None,
+                  kind: str = "self") -> torch.Tensor:
+    """``repro``'s ``_block_decode``; ``cache`` is updated in place.  An MoE
+    block routes the step's tokens in one group, ``ep`` by the gather path."""
+    h = _norm(x, blk["norm1"], cfg)
+    if isinstance(attn, MLAConfig):
+        _, a = mla_decode(blk["attn"], cache, h, attn, pos)
+    else:
+        _, a = gqa_decode(blk["attn"], cache, h, attn, pos)
     x = x + a
-    return x + dense_ffn(blk["ffn"], _norm(x, blk["norm2"], cfg), kind=cfg.ffn_kind)
+    h = _norm(x, blk["norm2"], cfg)
+    if kind == "self_moe":
+        y, _ = blk["moe"](h, moe_cfg._replace(
+            data_groups=1, impl="gather" if moe_cfg.impl == "ep" else moe_cfg.impl))
+    else:
+        y = dense_ffn(blk["ffn"], h, kind=cfg.ffn_kind)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
-# decoder LM (dense)
+# decoder LM (dense, moe)
 # ---------------------------------------------------------------------------
+
+_SEGMENT_FFN = {"self": "dense", "self_wide": "dense_wide", "self_moe": "moe"}
 
 
 class DecoderLM(Model):
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
+    """The ``dense`` and ``moe`` families: ``seg_plan`` as ``repro``'s, one
+    ``nn.ModuleList`` of blocks a segment (``segments.seg<i>``)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator,
+                 data_groups: int = 1):
         super().__init__(cfg, device, generator)
-        self.gqa = _gqa_cfg(cfg)
-        self.segments = nn.ModuleDict({"seg0": nn.ModuleList(
-            [_init_block(cfg, self.gqa, device, generator) for _ in range(cfg.n_layers)])})
+        if cfg.attn_kind == "mla":
+            self.mla = _mla_cfg(cfg)
+        else:
+            self.gqa = _gqa_cfg(cfg)
+        self.moe_cfg = _moe_cfg(cfg, data_groups) if cfg.n_experts else None
+        n_dense = cfg.first_dense_layers if cfg.n_experts else cfg.n_layers
+        self.seg_plan = []
+        if n_dense:
+            self.seg_plan.append(("self_wide" if (cfg.n_experts and cfg.d_ff_dense) else "self",
+                                  n_dense))
+        if cfg.n_experts and cfg.n_layers - n_dense > 0:
+            self.seg_plan.append(("self_moe", cfg.n_layers - n_dense))
+        self.segments = nn.ModuleDict({f"seg{i}": nn.ModuleList([
+            _init_block(cfg, self.attn_cfg, device, generator, ffn=_SEGMENT_FFN[kind],
+                        moe_cfg=self.moe_cfg) for _ in range(n)])
+            for i, (kind, n) in enumerate(self.seg_plan)})
+        if cfg.mtp:
+            dtype = _dtype(cfg)
+            D = cfg.d_model
+            self.mtp = Tree(
+                {"proj": dense_init((2 * D, D), in_axis=0, dtype=dtype, device=device,
+                                    generator=generator)},
+                {"block": _init_block(cfg, self.attn_cfg, device, generator,
+                                      ffn="dense_wide" if cfg.n_experts else "dense"),
+                 "norm_h": _init_norm(cfg, dtype, device),
+                 "norm_e": _init_norm(cfg, dtype, device),
+                 "final_norm": _init_norm(cfg, dtype, device)})
 
-    def _block(self, blk, x: torch.Tensor) -> torch.Tensor:
-        return _block_fwd(blk, x, self.cfg, self.gqa)
+    @property
+    def attn_cfg(self) -> AttnConfig:
+        """The attention layers' config: ``mla`` or ``gqa`` (the model's
+        attribute; replace it to switch the implementation)."""
+        return self.mla if self.cfg.attn_kind == "mla" else self.gqa
 
-    def _trunk(self, tokens) -> torch.Tensor:
+    def _segments(self):
+        for i, (kind, _) in enumerate(self.seg_plan):
+            yield kind, self.segments[f"seg{i}"], f"seg{i}"
+
+    def _block(self, blk, x: torch.Tensor, aux: torch.Tensor, kind: str):
+        return _block_fwd(blk, x, aux, self.cfg, self.attn_cfg, self.moe_cfg, kind)
+
+    def _trunk(self, tokens):
         x = self._embed(tokens)
-        for blk in self.segments["seg0"]:
-            x = _layer(self._block, self.cfg.remat, blk, x)
-        return x
+        aux = torch.zeros((), device=self.device)
+        for kind, blocks, _ in self._segments():
+            for blk in blocks:
+                x, aux = _layer(self._block, self.cfg.remat, blk, x, aux, kind)
+        return x, aux
 
     def forward(self, batch) -> torch.Tensor:
         """Prefill: logits (B, T, V), or (B, 1, V) under ``prefill_last_only``."""
-        x = self._trunk(batch["tokens"])
+        x, _ = self._trunk(batch["tokens"])
         if self.cfg.prefill_last_only:
             x = x[:, -1:]                 # serving: only next-token logits
         return self._logits(x)
 
     def loss_fn(self, batch):
-        """Mean next-token CE (plus z-loss) of ``batch`` (tokens, labels):
-        ``(loss, {"ce", "aux"})``; ``aux`` is 0 (MoE's balance loss in
-        ``repro``)."""
+        """Mean next-token CE (plus z-loss) of ``batch`` (tokens, labels),
+        plus the MoE balance loss ``aux`` (0 without MoE) and, with MTP,
+        ``mtp_weight`` times the MTP head's CE: ``(loss + aux, {"ce",
+        "aux"[, "mtp"]})``."""
         cfg = self.cfg
-        x = _norm(self._trunk(batch["tokens"]), self.final_norm, cfg)
+        h, aux = self._trunk(batch["tokens"])
+        x = _norm(h, self.final_norm, cfg)
         labels = self._labels(batch)
         if cfg.chunked_ce:
             loss = chunked_softmax_cross_entropy(x, self.head["w"], labels,
                                                  chunk=cfg.ce_chunk, z_loss=cfg.z_loss)
         else:
             loss = softmax_cross_entropy(x @ self.head["w"], labels, z_loss=cfg.z_loss)
-        aux = torch.zeros((), device=self.device)
-        return loss + aux, {"ce": loss, "aux": aux}
+        del x
+        metrics = {"ce": loss, "aux": aux}
+        if cfg.mtp:
+            m = self.mtp
+            emb_next = nn.functional.embedding(labels.long(), self.embed["table"])
+            hcat = torch.cat([_norm(h, m["norm_h"], cfg), _norm(emb_next, m["norm_e"], cfg)],
+                             dim=-1)
+            hm, _ = _block_fwd(m["block"], hcat @ m["proj"], None, cfg, self.attn_cfg,
+                               self.moe_cfg, "self_wide" if cfg.n_experts else "self")
+            hm = _norm(hm, m["final_norm"], cfg)
+            mtp_loss = softmax_cross_entropy(hm[:, :-1] @ self.head["w"], labels[:, 1:])
+            metrics["mtp"] = mtp_loss
+            loss = loss + cfg.mtp_weight * mtp_loss
+        return loss + aux, metrics
 
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, List[KVCache]]:
-        return {"seg0": [init_gqa_cache(self.gqa, batch, max_len, _cache_dtype(self.cfg),
-                                        device=self.device)
-                         for _ in range(self.cfg.n_layers)]}
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, list]:
+        """``{"seg<i>": [cache] * layers}``: a ``KVCache`` a layer, or an
+        ``MLACache`` (the compressed c_kv and the shared rope key)."""
+        dtype = _cache_dtype(self.cfg)
+        if self.cfg.attn_kind == "mla":
+            def one():
+                return init_mla_cache(self.mla, batch, max_len, dtype, device=self.device)
+        else:
+            def one():
+                return init_gqa_cache(self.gqa, batch, max_len, dtype, device=self.device)
+        return {name: [one() for _ in blocks] for _, blocks, name in self._segments()}
 
     def decode_step(self, cache, tokens, pos: int):
         x = self._embed(tokens)
-        for blk, c in zip(self.segments["seg0"], cache["seg0"]):
-            x = _block_decode(blk, c, x, self.cfg, self.gqa, pos)
+        for kind, blocks, name in self._segments():
+            for blk, c in zip(blocks, cache[name]):
+                x = _block_decode(blk, c, x, self.cfg, self.attn_cfg, pos, self.moe_cfg, kind)
         return self._logits(x), cache
 
 
@@ -308,7 +448,7 @@ class SSMLM(Model):
     def _superblock(self, blocks, x: torch.Tensor) -> torch.Tensor:
         for blk in blocks:
             x = self._block(blk, x)
-        return _block_fwd(self.shared_block, x, self.cfg, self.gqa)
+        return _block_fwd(self.shared_block, x, None, self.cfg, self.gqa)[0]
 
     def forward(self, batch) -> torch.Tensor:
         x = self._embed(batch["tokens"])
@@ -361,25 +501,25 @@ class SSMLM(Model):
 # ---------------------------------------------------------------------------
 
 
-def build_model(cfg: ArchConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> Model:
+def build_model(cfg: ArchConfig, device=None, generator: Optional[torch.Generator] = None,
+                *, data_groups: int = 1) -> Model:
     """The model of ``cfg`` on ``device`` (``None``: the card), its weights
-    drawn from ``generator`` (default: seed 0 on that device)."""
+    drawn from ``generator`` (default: seed 0 on that device); an MoE
+    model routes its forward's tokens in ``data_groups`` groups, as
+    ``repro``'s ``build_model(cfg, data_groups)``."""
     if cfg.family in DEFERRED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP "
                                   f"Queue 1 item 11, {DEFERRED_FAMILIES[cfg.family]})")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP Queue 1 "
-                                  "item 11, deferred item 2)")
-    if cfg.mtp:
-        raise NotImplementedError("multi-token prediction comes with MLA (ROADMAP Queue 1 "
-                                  "item 11, deferred item 2)")
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1 "
                                   "item 11, deferred item 4)")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.n_experts and cfg.moe_impl == "ep":
+        raise NotImplementedError(EP_DEFERRED)
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
-    return (DecoderLM if cfg.family == "dense" else SSMLM)(cfg, device, generator)
+    if cfg.family in ("dense", "moe"):
+        return DecoderLM(cfg, device, generator, data_groups)
+    return SSMLM(cfg, device, generator)

@@ -1,7 +1,8 @@
 """Shared model building blocks: init, norms, RoPE, losses.
 
 Port of :mod:`repro.models.common`.  Parameters are tensors held in
-``nn.ParameterDict``\\ s whose keys are ``repro``'s leaf names, so a
+``nn.ParameterDict``\\ s (or, where a node mixes leaves and sub-trees,
+:class:`Tree`\\ s) whose keys are ``repro``'s leaf names, so a
 parameter tree carries across by name (:mod:`repro_torch.models.convert`).
 Every init draws from an explicit :class:`torch.Generator` on the device the
 tensor is made on.  The losses are the mean next-token cross-entropy, whole
@@ -45,6 +46,29 @@ def params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
     turns it on (:func:`repro_torch.launch.steps.make_train_step`)."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
+
+
+class Tree(nn.Module):
+    """A node of a parameter tree that holds leaves and sub-trees side by
+    side under ``repro``'s names, which neither a ``ParameterDict`` nor a
+    ``ModuleDict`` can: an MoE layer's ``router`` and expert weights beside
+    its ``shared`` FFN, MTP's ``proj`` beside its block and norms.  Read by
+    name as those are (``tree["proj"]``, ``"shared" in tree``)."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor], children: Dict[str, nn.Module]):
+        super().__init__()
+        for name, t in leaves.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        for name, m in children.items():
+            self.add_module(name, m)
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 # -- norms ----------------------------------------------------------------------

@@ -23,27 +23,28 @@ def load_jax_params(module: nn.Module, tree: Mapping[str, Any], path: str = "") 
     """Copy ``tree`` — nested dicts of numpy arrays, what
     ``jax.tree.map(np.asarray, model.init(key))`` gives — into ``module``
     in place, on its device and in its dtypes.  Names must match exactly and
-    shapes must agree; a stacked leaf of a ``ModuleList`` is split along its
-    leading layer axis, and a list of lists takes the next axis in turn
-    (``repro``'s hybrid superblocks, ``segments/mamba/<leaf>`` of shape
+    shapes must agree; a node's leaves (its own parameters) and sub-trees
+    (its children) may sit side by side, as in an MoE layer's ``router``
+    beside its ``shared`` FFN; a stacked leaf of a ``ModuleList`` is split
+    along its leading layer axis, and a list of lists takes the next axis in
+    turn (``repro``'s hybrid superblocks, ``segments/mamba/<leaf>`` of shape
     ``(n_super, period, ...)``).  Returns ``module``."""
-    if isinstance(module, nn.ParameterDict):
-        _same_keys(path, set(module.keys()), set(tree))
-        for name, p in module.items():
-            value = np.asarray(tree[name])
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(f"{path}/{name}: shape {value.shape} does not match the "
-                                 f"port's {tuple(p.shape)}")
-            with torch.no_grad():
-                p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)).to(p.dtype))
-    elif isinstance(module, nn.ModuleList):
+    if isinstance(module, nn.ModuleList):
         for i, child in enumerate(module):
             load_jax_params(child, _layer(tree, i), f"{path}/{i}")
-    else:
-        children = dict(module.named_children())
-        _same_keys(path, set(children), set(tree))
-        for name, child in children.items():
-            load_jax_params(child, tree[name], f"{path}/{name}")
+        return module
+    leaves = dict(module.named_parameters(recurse=False))
+    children = dict(module.named_children())
+    _same_keys(path, set(leaves) | set(children), set(tree))
+    for name, p in leaves.items():
+        value = np.asarray(tree[name])
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"{path}/{name}: shape {value.shape} does not match the "
+                             f"port's {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)).to(p.dtype))
+    for name, child in children.items():
+        load_jax_params(child, tree[name], f"{path}/{name}")
     return module
 
 

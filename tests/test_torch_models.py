@@ -34,7 +34,9 @@ MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVED = {"qwen3-1.7b": dict(attention_impl="pallas"),
           "mamba2-2.7b": dict(ssd_impl="pallas"),
-          "zamba2-2.7b": dict(attention_impl="pallas", ssd_impl="pallas")}
+          "zamba2-2.7b": dict(attention_impl="pallas", ssd_impl="pallas"),
+          "moonshot-v1-16b-a3b": dict(attention_impl="pallas"),
+          "deepseek-v3-671b": dict(attention_impl="pallas")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -267,8 +269,7 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(n for n, c in configs.ARCHS.items()
-                                        if c.family not in ("dense", "ssm", "hybrid")
-                                        or c.attn_kind == "mla"))
+                                        if c.family not in ("dense", "moe", "ssm", "hybrid")))
 def test_deferred_archs_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.smoke_config(configs.get_arch(name)), device="cpu")
@@ -278,6 +279,41 @@ def test_int8_kv_cache_is_deferred():
     cfg = configs.smoke_config(configs.get_arch("qwen3-1.7b")).replace(kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="int8"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("groups,capacity", [(2, 1.25), (1, 0.5)])
+def test_moe_forward_groups_and_drops_vs_repro(arch, groups, capacity):
+    """Routing in data groups (build_model(cfg, data_groups=2), as repro's)
+    and a capacity that drops slots: the port drops the same ones."""
+    jcfg = jconfigs.smoke_config(jconfigs.get_arch(arch)).replace(capacity_factor=capacity)
+    tcfg = configs.smoke_config(configs.get_arch(arch)).replace(capacity_factor=capacity)
+    jm = jax_build_model(jcfg, groups)
+    jp = _np_tree(jm.init(jax.random.PRNGKey(1)))
+    tm = load_jax_params(build_model(tcfg, device="cpu", data_groups=groups), jp)
+    assert tm.moe_cfg.data_groups == groups
+    toks = _tokens((2, 16), tcfg.vocab, seed=4)
+    ref = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    out = make_prefill_step(tm)({"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_decode_matches_forward(arch):
+    """tests/test_archs_smoke.py's teacher-forced decode on the port: with a
+    capacity no token exceeds, the decode steps give the forward's logits
+    (the forward drops slots batch-wide, decode routes a step at a time)."""
+    cfg = configs.smoke_config(configs.get_arch(arch)).replace(attention_impl="naive",
+                                                               capacity_factor=8.0)
+    tm = build_model(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens((2, 16), cfg.vocab, seed=2))
+    full = make_prefill_step(tm)({"tokens": toks})
+    cache, step = tm.init_cache(2, 16), make_decode_step(tm)
+    outs = []
+    for t in range(16):
+        logits, cache = step({"cache": cache, "tokens": toks[:, t:t + 1], "pos": t})
+        outs.append(logits[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=2e-3, atol=2e-3)
 
 
 def test_load_jax_params_checks_names_and_shapes():

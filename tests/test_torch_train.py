@@ -2,9 +2,11 @@
 
 Weights come from repro's ``init`` and are carried across by
 ``load_jax_params`` (optimizer state by ``load_jax_opt_state``); batches are
-the same numpy draws.  ``loss_fn`` for the dense, ssm and hybrid families at
-``smoke_config``: the loss within 1e-5 relative, every gradient leaf within
-1e-4 of its max |g|, plain and under ``chunked_ce``, ``z_loss`` and
+the same numpy draws.  ``loss_fn`` for the dense, ssm, hybrid and moe
+families at ``smoke_config`` (moe: moonshot with GQA, deepseek with MLA and
+MTP): the loss and its metrics (ce, aux, mtp) within 1e-5 relative, every
+gradient leaf within 1e-4 of its max |g|, plain and under ``chunked_ce``,
+``z_loss`` and
 ``bwd_bf16_boundary``; ``remat`` full and dots give the gradients of none.
 ``make_train_step`` against repro's; tests/test_system.py's training cases
 mirrored; a run stopped in repro goes on in the port.  E's and F's wrappers
@@ -43,7 +45,8 @@ from repro_torch.optim import AdamState, adamw, warmup_cosine  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-FAMILIES = ["qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b"]
+FAMILIES = ["qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b", "moonshot-v1-16b-a3b",
+            "deepseek-v3-671b"]
 VARIANTS = {"plain": {}, "chunked_ce": dict(chunked_ce=True, ce_chunk=100),
             "z_loss": dict(z_loss=1e-3), "bwd_bf16_boundary": dict(bwd_bf16_boundary=True)}
 
@@ -162,14 +165,16 @@ def test_loss_fn_and_grads_vs_repro(arch, variant, monkeypatch):
     if variant == "bwd_bf16_boundary":
         assert theirs.keys() == ours.keys() and len(ours) == (
             tm.cfg.n_layers // tm.cfg.hybrid_period if tm.cfg.family == "hybrid"
-            else tm.cfg.n_layers if tm.cfg.family == "dense" else 0)
+            else tm.cfg.n_layers + tm.cfg.mtp if tm.cfg.family in ("dense", "moe") else 0)
         _close_grads({k: torch.from_numpy(v) for k, v in ours.items()},
                      {k: torch.from_numpy(v) for k, v in theirs.items()})
     else:
         loss, metrics, grads = _grads(tm, batch)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     assert set(metrics) == set(jmetrics)
-    np.testing.assert_allclose(metrics["ce"].item(), float(jmetrics["ce"]), rtol=1e-5)
+    for name in metrics:                  # ce, and the moe family's aux and mtp
+        np.testing.assert_allclose(metrics[name].item(), float(jmetrics[name]), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
     _close_grads(grads, jax_tree_to_params(tm, _np_tree(jgrads)))
 
 
@@ -437,7 +442,9 @@ def test_forward_only_calls_are_unchanged():
 @pytest.mark.parametrize("arch,impl", [("qwen3-1.7b", dict(attention_impl="pallas")),
                                        ("mamba2-2.7b", dict(ssd_impl="pallas")),
                                        ("zamba2-2.7b", dict(attention_impl="pallas")),
-                                       ("zamba2-2.7b", dict(ssd_impl="pallas"))])
+                                       ("zamba2-2.7b", dict(ssd_impl="pallas")),
+                                       ("moonshot-v1-16b-a3b", dict(attention_impl="pallas")),
+                                       ("deepseek-v3-671b", dict(attention_impl="pallas"))])
 def test_a_model_on_the_kernels_cannot_train(arch, impl):
     _, _, tm = _model_pair(arch, **impl)
     params = tm.param_tree()
