@@ -52,7 +52,16 @@ Phases, in order; any failure raises and the run exits non-zero:
              family's: moonshot-v1-16b-a3b's MHA (16 heads, head dim 128)
              in fp32 and bf16, deepseek-v3-671b's MLA (128 heads, dk 192,
              dv 128) in fp32, SDPA beside it where SDPA takes dk != dv
-             (check_moe_shapes; logged, not in the kernels line).
+             (check_moe_shapes; logged, not in the kernels line), and off
+             its causal path at the vlm and audio families' shapes:
+             llama-3.2-vision-90b's self attention (q (4, 2048, 8, 8, 128),
+             causal, G 8) and its cross-attention (the same q over 1,601
+             vision keys, non-causal), each in fp32 and bf16 (bf16 also
+             against the fp32 plain version at limits scaled to the
+             output), hubert-xlarge's MHA
+             (q (4, 2048, 16, 1, 80), non-causal), SDPA beside each
+             (check_vlm_audio_shapes; logged, not in the kernels line);
+             check_flash's edges take the non-causal ones at small sizes.
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -142,9 +151,26 @@ Phases, in order; any failure raises and the run exits non-zero:
              are compared and the kernel forward is printed against the
              blocked one; (c) serves them under smoke_config (neither whole
              config fits one card).
-             Last, qwen3-1.7b and moonshot-v1-16b-a3b (all 48 layers) in
+             Then qwen3-1.7b and moonshot-v1-16b-a3b (all 48 layers) in
              bf16: one 4 x 2048 prefill each, the flash kernel's bf16 body
-             once per layer.
+             once per layer.  The vlm: llama-3.2-vision-90b in fp32 cut to 3
+             of its 20 superblocks (each 4 self blocks and a cross block,
+             every width as published): (a) a 4 x 2048 prefill over 1,601
+             random vision embeddings of width 7,680, E x 15 (12 self, 3
+             cross); (b) its forward on 256 tokens against 256 decode steps
+             over cross caches the script fills with the vision K/V
+             (repro's decode never fills them), the same gap limit; (c)
+             serve(smoke=False) at the same cut on the zero cross caches, as
+             repro serves it; then 7 of 20 superblocks in bf16, one prefill
+             (E's bf16 body x 35).  hubert-xlarge whole in fp32: a 4 x 2048-
+             frame encode (E x 48, its share printed) and the kernel's
+             logits against blocked attention's on 256 frames.  The int8
+             KV cache: qwen3-1.7b at full width, 256 teacher-forced steps
+             whose cache's codes and scales must be bit-equal to the CPU
+             quantizer's on the K/V rows the steps quantized; the int8 and
+             the unquantized decode timed in four 64-step blocks and their
+             gap printed; at smoke size (qwen2-72b) the int8 decode within
+             0.15 of the unquantized one at every step.
 8. train   — training on the card (device left at its default): (a)
              train() on qwen3-1.7b at its full config (2.03 B parameters,
              fp32, AdamW + warmup_cosine + clip 1.0, LMDataPipeline), 8
@@ -183,7 +209,12 @@ Phases, in order; any failure raises and the run exits non-zero:
              tokens/s and peak printed; (h) deepseek-v3-671b's
              smoke_config (MLA + MoE + MTP), 10 steps on the card against
              the CPU (within 1e-4), and a backward through the flash kernel
-             (MLA on it) must raise.
+             (MLA on it) must raise; (i) train() on hubert-xlarge at its
+             full config (945.6 M parameters), 4 steps of 8 x 128 frames
+             (blocked attention); the vlm's smoke_config card against CPU
+             (within 1e-4); a backward through the flash kernel must raise
+             for both families.  The vlm at full width does not train on
+             one card: its embeddings and head alone are 2.1 B parameters.
 9. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
@@ -208,7 +239,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch import card_info  # noqa: E402
+from repro_torch import card_info, configs  # noqa: E402
 from repro_torch.analytics import kmeans, logreg, nmf, pagerank  # noqa: E402
 from repro_torch.check import CheckError  # noqa: E402
 from repro_torch.check import checker as stepcheck  # noqa: E402
@@ -245,8 +276,9 @@ from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
     BITONIC_MIN_K, topk_compress, topk_compress_plain)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
-from repro_torch.launch.train import train  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.train import batch_for, train  # noqa: E402
+from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.ffn import MoE, capacity, expert_loads, routed_experts  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw, compressed_accumulate, compression_ratio, ef_init, warmup_cosine, zero1_gather_params,
@@ -333,6 +365,7 @@ LM_BF16 = ("qwen3-1.7b", "moonshot-v1-16b-a3b")
 # at 8.0), so 16.0 there (C 512); at E / k the decode step's C is its batch
 MOE_FORWARD_CAPACITY = {"moonshot-v1-16b-a3b": 8.0, "deepseek-v3-671b": 16.0}
 LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
+VLM_VISION_TOKENS = get_arch("llama-3.2-vision-90b").vision_tokens        # 1,601
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)                       # test_kernels.py:193
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)                      # the repo's bf16 tolerance
@@ -1058,9 +1091,12 @@ def ptxas_lines(log: str, marker: str) -> list:
 def check_flash(rng) -> dict:
     """flash_attention against its plain version: test_kernels.py's four
     sweep shapes, the edges of the kernel's tiling (head dims 20, 80 and
-    192/128; T > S with S no multiple of the KV tile) and, on the GQA layout,
-    q_offset with T != S, a decode-shaped call (T = 1, q_offset = S - 1) and
-    the qwen3-1.7b prefill shape at batch 1, each in fp32 and bf16; then the
+    192/128; T > S with S no multiple of the KV tile; head dim 80
+    non-causal; S one past a multiple of 64, so that the last KV tile
+    holds one key, causal and not) and, on the GQA layout, q_offset with T
+    != S, a decode-shaped call (T = 1, q_offset = S - 1), the qwen3-1.7b
+    prefill shape at batch 1, and G 8 non-causal with T > S and S one past a
+    tile (the vlm's cross-attention), each in fp32 and bf16; then the
     qwen3-1.7b prefill shape (B 4, T 2048, KH 8, G 2, d 128) in fp32, timed
     there beside SDPA on the same inputs (K/V expanded to the 16 heads)."""
     def held(out, ref, dtype, what):
@@ -1073,42 +1109,54 @@ def check_flash(rng) -> dict:
                                         (3, 64, 64, 128, 128, True), (1, 17, 33, 16, 16, True),
                                         (2, 50, 70, 20, 20, True), (2, 130, 130, 80, 80, True),
                                         (2, 100, 150, 192, 128, False),
-                                        (1, 200, 77, 64, 64, True), (1, 200, 77, 128, 128, False)]:
+                                        (1, 200, 77, 64, 64, True), (1, 200, 77, 128, 128, False),
+                                        (2, 130, 130, 80, 80, False), (2, 150, 129, 128, 128, False),
+                                        (1, 129, 129, 128, 128, True)]:
             q, k, v = (cuda_normal(rng, sh, dtype=dtype) for sh in ((bh, t, d), (bh, s, d),
                                                                     (bh, s, dv)))
             held(flash_attention_bhsd(q, k, v, causal=causal),
                  attention_bhsd_ref(q, k, v, causal=causal), dtype, (bh, t, s, d, dv, dtype))
-        for b, t, s, kh, g, q_offset in [(2, 130, 200, 4, 2, 70), (2, 1, 300, 8, 2, 299),
-                                         (1, LM_PREFILL, LM_PREFILL, 8, 2, 0)]:
+        for b, t, s, kh, g, q_offset, causal in [
+                (2, 130, 200, 4, 2, 70, True), (2, 1, 300, 8, 2, 299, True),
+                (1, LM_PREFILL, LM_PREFILL, 8, 2, 0, True), (1, 300, 193, 2, 8, 0, False),
+                (1, LM_PREFILL, VLM_VISION_TOKENS, 8, 8, 0, False)]:
             q = cuda_normal(rng, (b, t, kh, g, 128), dtype=dtype)
             k, v = (cuda_normal(rng, (b, s, kh, 128), dtype=dtype) for _ in range(2))
-            held(fa_ops.flash_attention(q, k, v, causal=True, q_offset=q_offset),
-                 gqa_plain(q, k, v, causal=True, q_offset=q_offset), dtype,
-                 f"GQA {(b, t, s, kh, g)} q_offset={q_offset} {dtype}")
+            held(fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset),
+                 gqa_plain(q, k, v, causal=causal, q_offset=q_offset), dtype,
+                 f"GQA {(b, t, s, kh, g)} q_offset={q_offset} causal={causal} {dtype}")
 
     return flash_prefill(rng, "qwen3-1.7b", 8, 2, 128)
 
 
 def flash_prefill(rng, arch: str, kh: int, g: int, d: int, dv: int = None,
-                  dtype: torch.dtype = torch.float32) -> dict:
+                  dtype: torch.dtype = torch.float32, s: int = None,
+                  causal: bool = True, scaled: bool = False) -> dict:
     """flash_attention at ``arch``'s prefill shape (B 4, T 2048, KH, G, dk
-    ``d``, dv ``dv`` or ``d``) in ``dtype``: held to its plain version at
-    FLASH_TOL, timed a call and by graph replay beside the plain version
-    and SDPA on the same inputs (K/V expanded to the KH x G heads; where
-    SDPA refuses dk != dv, ``library_ms`` is None)."""
-    b, t, dv = LM_BATCH, LM_PREFILL, dv or d
+    ``d``, dv ``dv`` or ``d``, S keys ``s`` or T, causal or not) in
+    ``dtype``: held to its plain version at FLASH_TOL (and, under ``scaled``,
+    in bf16, to limits scaled to the output: ``bf16_held_scaled``), timed a
+    call and by graph replay beside the plain version and SDPA on the same
+    inputs (K/V expanded to the KH x G heads; where SDPA refuses dk != dv,
+    ``library_ms`` is None)."""
+    b, t, dv, s = LM_BATCH, LM_PREFILL, dv or d, s or LM_PREFILL
+    mask = "causal" if causal else "non-causal"
     q = cuda_normal(rng, (b, t, kh, g, d), dtype=dtype)
-    k = cuda_normal(rng, (b, t, kh, d), dtype=dtype)
-    v = cuda_normal(rng, (b, t, kh, dv), dtype=dtype)
-    out = fa_ops.flash_attention(q, k, v, causal=True)
-    ref = gqa_plain(q, k, v, causal=True, q_offset=0)
+    k = cuda_normal(rng, (b, s, kh, d), dtype=dtype)
+    v = cuda_normal(rng, (b, s, kh, dv), dtype=dtype)
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    ref = gqa_plain(q, k, v, causal=causal, q_offset=0)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
                                msg=lambda m: f"flash_attention at the {arch} prefill shape "
                                              f"({dtype}): {m}")
     max_abs_err = float((out.float() - ref.float()).abs().max())
-    del out, ref
-    visible = t * (t + 1) // 2                       # causal (query, key) pairs per head
+    del ref
+    if scaled and dtype == BF16:
+        bf16_held_scaled(out, q, k, v, causal, f"{arch} (S {s}, {mask})")
+    del out
+    # the (query, key) pairs each head scores (causal with S = T: the triangle)
+    visible = t * (t + 1) // 2 if causal else t * s
     size = q.element_size()
     nbytes = size * (q.numel() + k.numel() + v.numel() + q.numel() // d * dv)
     flops = 2.0 * b * kh * g * visible * (d + dv)    # q.k and p.v over the visible pairs
@@ -1123,14 +1171,15 @@ def flash_prefill(rng, arch: str, kh: int, g: int, d: int, dv: int = None,
     else:
         tb, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
         rates = f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s of bf16)"
-    log(f"flash_attention {DTYPE_NAMES[dtype]} bounds at the {arch} prefill shape: {tb:.4f} "
+    log(f"flash_attention {DTYPE_NAMES[dtype]} bounds at the {arch} prefill shape "
+        f"(S {s}, {mask}): {tb:.4f} "
         f"ms ({by}; {rates}, bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; shared memory "
         f"per CTA {smem_bytes(d, dv, dtype)} bytes")
     qs = q.reshape(b, t, kh * g, d).transpose(1, 2)
     ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
 
     def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
 
     try:
         sdpa()
@@ -1141,13 +1190,36 @@ def flash_prefill(rng, arch: str, kh: int, g: int, d: int, dv: int = None,
     else:
         library_ms, library_device_ms = time_ms(sdpa, 20), graph_ms(sdpa, 20)
     return dict(
-        shape=f"q ({b}, {t}, {kh}, {g}, {d}) {DTYPE_NAMES[dtype]}, k ({b}, {t}, {kh}, {d}), "
-              f"v ({b}, {t}, {kh}, {dv}), causal",
+        shape=f"q ({b}, {t}, {kh}, {g}, {d}) {DTYPE_NAMES[dtype]}, k ({b}, {s}, {kh}, {d}), "
+              f"v ({b}, {s}, {kh}, {dv}), {mask}",
         max_abs_err=max_abs_err,
-        ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
-        device_ms=graph_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20),
-        plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=True, q_offset=0), 5),
+        ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal), 20),
+        device_ms=graph_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal), 20),
+        plain_ms=time_ms(lambda: gqa_plain(q, k, v, causal=causal, q_offset=0), 5),
         bound_ms=tb, bound_by=by, library_ms=library_ms, library_device_ms=library_device_ms)
+
+
+def bf16_held_scaled(out, q, k, v, causal: bool, what: str) -> None:
+    """The bf16 body's output held to the fp32 plain version on the same bf16
+    inputs, at limits scaled to the output (FLASH_TOL's 3e-2 is about one
+    typical output where each query averages over ~1,600 keys): the error's
+    rms within 2^-8 of the output's rms (bf16 rounds to 2^-9 of a value;
+    a tail key dropped or a tile of padding let in moves the output by ~1%),
+    and, non-causal, its max within 0.1 std of the output (causal, the first
+    rows average a few values of v, outputs up to ~3 whose bf16 half ulp,
+    0.0078, is about 0.8 of that limit)."""
+    ref = gqa_plain(q.float(), k.float(), v.float(), causal=causal, q_offset=0)
+    err = out.float() - ref
+    rms_rel = float(err.square().mean().sqrt() / ref.square().mean().sqrt())
+    max_err, std = float(err.abs().max()), float(ref.std())
+    del ref, err
+    log(f"flash_attention bf16 at the {what} against the fp32 plain version: error rms "
+        f"{rms_rel:.4e} of the output's (limit {2 ** -8:.4e}), max |err| {max_err:.4e} "
+        f"against 0.1 std(out) {0.1 * std:.4e}" + ("" if causal else " (the limit)"))
+    if rms_rel > 2 ** -8 or (not causal and max_err > 0.1 * std):
+        raise AssertionError(f"flash_attention bf16 at the {what}: error rms {rms_rel:.4e} of "
+                             f"the output's, max |err| {max_err:.4e} against 0.1 std(out) "
+                             f"{0.1 * std:.4e}")
 
 
 def ssd_inputs(rng, b, t, h, p, g, n):
@@ -1252,6 +1324,27 @@ def check_moe_shapes(rng) -> dict:
                 rng, "moonshot-v1-16b-a3b", 16, 1, 128, dtype=BF16),
             "flash_attention@deepseek-v3-671b": flash_prefill(
                 rng, "deepseek-v3-671b", 128, 1, 192, dv=128)}
+
+
+def check_vlm_audio_shapes(rng) -> dict:
+    """E off its causal path, at the shapes the vlm and audio families give
+    it: llama-3.2-vision-90b's self attention (64 query heads over 8 KV
+    heads, G 8, head dim 128, causal) and its cross-attention (the 2,048
+    text queries over the 1,601 vision keys, non-causal: the last 64-key
+    tile holds one key), each in fp32 and bf16 (the bf16 prefill runs both),
+    the bf16 ones also held to limits scaled to the output, and
+    hubert-xlarge's MHA (16 heads at head dim 80, non-causal)."""
+    vlm = "llama-3.2-vision-90b"
+    return {"flash_attention@llama-3.2-vision-90b self": flash_prefill(rng, vlm, 8, 8, 128),
+            "flash_attention_bf16@llama-3.2-vision-90b self": flash_prefill(
+                rng, vlm, 8, 8, 128, dtype=BF16, scaled=True),
+            "flash_attention@llama-3.2-vision-90b cross": flash_prefill(
+                rng, vlm, 8, 8, 128, s=VLM_VISION_TOKENS, causal=False),
+            "flash_attention_bf16@llama-3.2-vision-90b cross": flash_prefill(
+                rng, vlm, 8, 8, 128, dtype=BF16, s=VLM_VISION_TOKENS, causal=False,
+                scaled=True),
+            "flash_attention@hubert-xlarge": flash_prefill(rng, "hubert-xlarge", 16, 1, 80,
+                                                           causal=False)}
 
 
 def f_timings(rng) -> dict:
@@ -2245,22 +2338,59 @@ def logit_gap(label: str, full, stepped) -> tuple:
     return delta, scale, same
 
 
-def run_lm_bf16_prefill(arch: str, counts: dict) -> None:
-    """``arch`` at its full config in bf16, prefill 4 x 2048: the flash
-    kernel's bf16 body once per layer; the logits finite, of the full
-    shape."""
-    cfg = get_arch(arch).replace(attention_impl="pallas", dtype="bfloat16")
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+def teacher_forced(model, cache, tokens) -> tuple:
+    """The decode steps over ``tokens`` (B, T) from ``cache``: their logits
+    (B, T, V), and tokens/s in each DECODE_BLOCK-step block, each timed
+    between two synchronisations (the steps double as a decode-rate
+    window)."""
+    rates, steps = [], []
+    with torch.no_grad():
+        for pos in range(tokens.shape[1]):
+            if pos % DECODE_BLOCK == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            step, cache = model.decode_step(cache, tokens[:, pos:pos + 1], pos)
+            steps.append(step[:, 0])
+            if (pos + 1) % DECODE_BLOCK == 0:
+                torch.cuda.synchronize()
+                rates.append(tokens.shape[0] * DECODE_BLOCK / (time.perf_counter() - t0))
+    return torch.stack(steps, dim=1), rates
+
+
+def lm_inputs(cfg, gen: torch.Generator, t: int) -> dict:
+    """A prefill batch of ``cfg``'s family, B x ``t``, drawn on the card from
+    ``gen``: random tokens, and the vlm's random vision embeddings (the
+    vision frontend is a stub: ``vision_tokens`` x ``vision_dim``)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, t), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn((LM_BATCH, cfg.vision_tokens, cfg.vision_dim),
+                                             generator=gen, device="cuda")
+    return batch
+
+
+def prompt_of(batch: dict) -> dict:
+    """``batch`` with its tokens cut to the first LM_CONSISTENCY."""
+    return dict(batch, tokens=batch["tokens"][:, :LM_CONSISTENCY])
+
+
+def run_lm_bf16_prefill(arch: str, counts: dict, **cut) -> None:
+    """``arch`` at its full config (or cut by ``cut``, e.g. ``n_layers``) in
+    bf16, prefill 4 x 2048: the flash kernel's bf16 body once per layer;
+    the logits finite, of the full shape."""
+    cfg = get_arch(arch).replace(attention_impl="pallas", dtype="bfloat16", **cut)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model = build_model(cfg, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"lm {arch} bf16: {n_params} parameters "
-        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB)")
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB), "
+        f"{cfg.n_layers} of {get_arch(arch).n_layers} layers")
     prefill = make_prefill_step(model)
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), device="cuda",
-                           dtype=torch.int32, generator=torch.Generator("cuda").manual_seed(SEED))
-    prefill({"tokens": tokens[:, :LM_CONSISTENCY]})      # warm-up, not counted
+    batch = lm_inputs(cfg, gen, LM_PREFILL)
+    prefill(prompt_of(batch))                            # warm-up, not counted
     t0 = time.perf_counter()
     logits, launched = run_app(f"lm {arch} bf16 prefill {LM_BATCH}x{LM_PREFILL}", counts,
-                               lambda: prefill({"tokens": tokens}))
+                               lambda: prefill(batch))
     log(f"lm {arch} bf16 prefill: "
         f"{LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s")
     expect_launches(f"{arch} bf16 prefill", launched,
@@ -2268,7 +2398,9 @@ def run_lm_bf16_prefill(arch: str, counts: dict) -> None:
     if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError(f"{arch} bf16 prefill: logits not finite or of the wrong shape")
-    del model, prefill, logits
+    log(f"lm {arch} bf16 prefill: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del model, prefill, logits, batch
     torch.cuda.empty_cache()
 
 
@@ -2308,7 +2440,7 @@ def routing_differences(forward_calls: list, decode_calls: list) -> int:
     return differ
 
 
-def run_lm() -> dict:
+def run_lm(shapes: dict) -> dict:
     # the app phase's sessions hold device tensors in reference cycles: free
     # them, so the peak memory read here is the models'
     gc.collect()
@@ -2364,22 +2496,8 @@ def run_lm() -> dict:
                 raise AssertionError(f"{arch}: decode capacity {c_decode} < batch {LM_BATCH}")
             log(f"lm {arch} decode: capacity factor E/k = {moe.n_experts / moe.top_k:.4f}, "
                 f"C {c_decode} at batch {LM_BATCH}: no slot can drop")
-        # the decode steps double as a decode-rate window: four blocks of
-        # DECODE_BLOCK steps, each timed between two synchronisations
-        rates = []
-        with torch.no_grad():
-            cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
-            steps = []
-            for pos in range(LM_CONSISTENCY):
-                if pos % DECODE_BLOCK == 0:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                step, cache = model.decode_step(cache, prompt[:, pos:pos + 1], pos)
-                steps.append(step[:, 0])
-                if (pos + 1) % DECODE_BLOCK == 0:
-                    torch.cuda.synchronize()
-                    rates.append(LM_BATCH * DECODE_BLOCK / (time.perf_counter() - t0))
-            stepped = torch.stack(steps, dim=1)
+        cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
+        stepped, rates = teacher_forced(model, cache, prompt)
         if moe is not None:
             for h in hooks:
                 h.remove()
@@ -2421,7 +2539,7 @@ def run_lm() -> dict:
             log(f"lm {arch} kernel vs {plain_impls} forward: max |dlogit| "
                 f"{float((full - plain).abs().max()):.3e}")
             del plain
-        del model, prefill, full, stepped, steps, cache
+        del model, prefill, full, stepped, cache
         torch.cuda.empty_cache()
 
         # (c) the serving loop (prefill by decode + greedy): at full width,
@@ -2437,7 +2555,241 @@ def run_lm() -> dict:
         torch.cuda.empty_cache()
     for arch in LM_BF16:
         run_lm_bf16_prefill(arch, counts)
+    run_vlm(counts)
+    run_lm_bf16_prefill(VLM, counts, n_layers=VLM_SUPER_BF16 * VLM_PERIOD)
+    run_hubert(counts, shapes)
+    run_int8_decode(counts)
     return counts
+
+
+# the vlm and audio families and the int8 KV cache (phase 7).
+# llama-3.2-vision-90b is cut in whole superblocks, each its 4 self blocks and
+# the cross block closing it, every width as published: whole it holds
+# 87,729,709,056 parameters (351 GB in fp32), so 3 of its 20 superblocks in
+# fp32 (14,999,085,056, 55.9 GiB) and 7 in bf16 (32,112,173,056, 59.8 GiB);
+# hubert-xlarge runs whole (945,574,400)
+VLM, AUDIO = "llama-3.2-vision-90b", "hubert-xlarge"
+VLM_PERIOD = get_arch(VLM).cross_attn_period
+VLM_SUPER_F32, VLM_SUPER_BF16 = 3, 7
+INT8_ARCH = "qwen3-1.7b"
+INT8_SMOKE_ARCH, INT8_SMOKE_STEPS, INT8_SMOKE_GAP = "qwen2-72b", 12, 0.15  # test_archs_smoke.py:82
+
+
+@contextlib.contextmanager
+def arch_cut(arch: str, **overrides):
+    """``configs.ARCHS[arch]`` replaced by its config with ``overrides`` (a
+    depth cut) while the block runs: ``serve`` and ``train`` take an arch by
+    name."""
+    whole = configs.ARCHS[arch]
+    configs.ARCHS[arch] = whole.replace(**overrides)
+    try:
+        yield configs.ARCHS[arch]
+    finally:
+        configs.ARCHS[arch] = whole
+
+
+def fill_cross_caches(model, cache: dict, vision_embeds) -> None:
+    """Each cross block's decode cache filled with its vision K/V as
+    ``cross_attend`` computes them (``kv_embeds @ wk``, ``@ wv``, k-norm
+    where the config sets it).  ``repro``'s vlm decode never fills them (its
+    ``serve`` takes no image), so this check fills them itself."""
+    with torch.no_grad():
+        vis = model._vision_of({"vision_embeds": vision_embeds})
+        for sblk, c in zip(model.segments["seg0"], cache["seg0"]["cross"]):
+            p = sblk["cross"]["attn"]
+            k = torch.einsum("bsd,dhk->bshk", vis, p["wk"])
+            c.k.copy_(rms_norm(k, p["k_norm"]) if model.cfg.qk_norm else k)
+            c.v.copy_(torch.einsum("bsd,dhk->bshk", vis, p["wv"]))
+
+
+def run_vlm(counts: dict) -> None:
+    """llama-3.2-vision-90b in fp32 at VLM_SUPER_F32 of its 20 superblocks,
+    on E: (a) a 4 x 2048 prefill over 1,601 random vision embeddings of
+    width 7,680, E once a block (the self blocks causal at G 8, the cross
+    blocks non-causal over the vision keys); (b) its forward on the first
+    256 tokens against 256 decode steps over cross caches filled with the
+    vision K/V; (c) ``serve(smoke=False)`` at the same cut, on the zero
+    cross caches ``init_cache`` makes, as ``repro`` serves it."""
+    whole = get_arch(VLM)
+    cfg = whole.replace(attention_impl="pallas", n_layers=VLM_SUPER_F32 * VLM_PERIOD)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm {VLM}: {n_params} parameters ({n_params * 4 / 2**30:.2f} GiB fp32), "
+        f"{VLM_SUPER_F32} of {whole.n_layers // VLM_PERIOD} superblocks ({cfg.n_layers} of "
+        f"{whole.n_layers} layers), built in {time.perf_counter() - t0:.2f} s")
+    prefill = make_prefill_step(model)
+    batch = lm_inputs(cfg, gen, LM_PREFILL)
+    prompt = prompt_of(batch)
+    prefill(prompt)                                      # warm-up, not counted
+    kernels = {"flash_attention": cfg.n_layers}          # 4 self + 1 cross a superblock
+
+    t0 = time.perf_counter()
+    logits, launched = run_app(f"lm {VLM} prefill {LM_BATCH}x{LM_PREFILL}", counts,
+                               lambda: prefill(batch))
+    log(f"lm {VLM} prefill: {LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    expect_launches(f"{VLM} prefill", launched, kernels)
+    if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{VLM} prefill: logits {tuple(logits.shape)} not finite or of "
+                             "the wrong shape")
+    del logits
+
+    full, launched = run_app(f"lm {VLM} forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
+                             lambda: prefill(prompt))
+    expect_launches(f"{VLM} forward", launched, kernels)
+    cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
+    fill_cross_caches(model, cache, batch["vision_embeds"])
+    stepped, rates = teacher_forced(model, cache, prompt["tokens"])
+    log(f"lm {VLM} decode, batch {LM_BATCH}, tokens/s per {DECODE_BLOCK}-step block: "
+        f"{[round(r, 1) for r in rates]} (median {statistics.median(rates):.1f}); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    delta, scale, same = logit_gap(f"{VLM} prefill (cross caches filled)", full, stepped)
+    if not delta <= 1e-3 * scale:
+        raise AssertionError(f"{VLM}: prefill and decode disagree")
+    if not same:
+        # within max |dlogit| of each other, the two can pick different
+        # tokens only where the forward's top two lie within 2 max |dlogit|
+        near = full.topk(2, dim=-1).values
+        ties = int(((near[..., 0] - near[..., 1]) <= 2 * delta).sum())
+        flips = int((full.argmax(-1) != stepped.argmax(-1)).sum())
+        log(f"lm {VLM}: argmax differs at {flips} of {full.shape[0] * full.shape[1]} "
+            f"positions, each a near tie: {ties} positions have the forward's top two "
+            f"logits within 2 max |dlogit| = {2 * delta:.3e} (random weights over "
+            f"{cfg.vocab} classes, max |logit| {scale:.3f})")
+    del model, prefill, full, stepped, cache, batch, prompt
+    torch.cuda.empty_cache()
+
+    with arch_cut(VLM, n_layers=cfg.n_layers):
+        toks, _ = run_app(f"lm {VLM} serve ({VLM_SUPER_F32} superblocks, zero cross caches)",
+                          counts, lambda: serve(VLM, smoke=False, batch=LM_BATCH, prompt_len=32,
+                                                gen=32, seed=SEED))
+    if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{VLM} serve: tokens {toks.shape} out of range")
+    torch.cuda.empty_cache()
+
+
+def run_hubert(counts: dict, shapes: dict) -> None:
+    """hubert-xlarge whole in fp32, on E: a 4 x 2048-frame encode (E once a
+    layer, non-causal MHA at head dim 80), its tokens/s, peak memory and
+    E's share (phase 3's time at this shape x 48 over the wall); then the
+    kernel's logits on the first 256 frames against blocked attention's on
+    the same weights, within 1e-3 of max |logit|."""
+    cfg = get_arch(AUDIO).replace(attention_impl="pallas")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model = build_model(cfg, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm {AUDIO}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32), whole")
+    prefill = make_prefill_step(model)
+    frames = torch.randn((LM_BATCH, LM_PREFILL, cfg.frame_dim), generator=gen, device="cuda")
+    prefill({"frames": frames[:, :LM_CONSISTENCY]})      # warm-up, not counted
+    label = f"lm {AUDIO} encode {LM_BATCH}x{LM_PREFILL}"
+    t0 = time.perf_counter()
+    logits, launched = run_app(label, counts, lambda: prefill({"frames": frames}))
+    rate = LM_BATCH * LM_PREFILL / (time.perf_counter() - t0)
+    expect_launches(f"{AUDIO} encode", launched, {"flash_attention": cfg.n_layers})
+    if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{AUDIO} encode: logits not finite or of the wrong shape")
+    e_ms = shapes[f"flash_attention@{AUDIO}"]["ms"]
+    log(f"lm {AUDIO} encode: {rate:.1f} frames/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; E's share {cfg.n_layers} x "
+        f"{e_ms:.4f} ms / {WALLS[label] * 1e3:.1f} ms = "
+        f"{cfg.n_layers * e_ms / (WALLS[label] * 1e3):.1%}")
+    del logits
+    head = {"frames": frames[:, :LM_CONSISTENCY]}
+    kernel = prefill(head)
+    model.gqa = model.gqa._replace(attention_impl="blocked")
+    plain, launched = run_app(f"lm {AUDIO} blocked encode {LM_BATCH}x{LM_CONSISTENCY}", counts,
+                              lambda: prefill(head))
+    expect_launches(f"{AUDIO} blocked encode", launched, {"flash_attention": 0})
+    delta, scale = float((kernel - plain).abs().max()), float(plain.abs().max())
+    log(f"lm {AUDIO} kernel vs blocked encode: max |dlogit| {delta:.3e}, max |logit| "
+        f"{scale:.3e}, ratio {delta / scale:.3e} (limit 1e-3)")
+    if not delta <= 1e-3 * scale:
+        raise AssertionError(f"{AUDIO}: the kernel's encode and blocked attention's disagree")
+    del model, prefill, frames, kernel, plain
+    torch.cuda.empty_cache()
+
+
+def run_int8_decode(counts: dict) -> None:
+    """kv_cache_dtype="int8": (f) qwen3-1.7b at full width, 256 teacher-forced
+    steps recording the K/V rows each step quantizes, the cache's codes and
+    scales bit-equal to ``_quantize_i8`` on the CPU over those rows; then
+    the unquantized cache's decode and the int8 cache's, each timed in four
+    64-step blocks, and their logit gap printed (not gated at full width);
+    last, at smoke size, the int8 decode within 0.15 of the unquantized one
+    at every step (``repro``'s own limit)."""
+    cfg = get_arch(INT8_ARCH).replace(kv_cache_dtype="int8")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model = build_model(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_CONSISTENCY), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    rows, quantize = [], attention._quantize_i8
+
+    def recording(x):
+        rows.append(x.detach().clone())
+        return quantize(x)
+
+    cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
+    attention._quantize_i8 = recording
+    try:
+        teacher_forced(model, cache, tokens)
+    finally:
+        attention._quantize_i8 = quantize
+    layers = cache["seg0"]
+    kh, hd = model.gqa.n_kv_heads, model.gqa.head_dim
+    x = torch.stack(rows).reshape(LM_CONSISTENCY, len(layers), 2, LM_BATCH, kh, hd).cpu()
+    del rows
+    codes, scales = quantize(x)                          # on the CPU
+    for i, c in enumerate(layers):
+        for j, (q, sc) in enumerate(((c.k_q, c.k_s), (c.v_q, c.v_s))):
+            q, sc = q.cpu().transpose(0, 1), sc.cpu().transpose(0, 1)
+            if not (torch.equal(q, codes[:, i, j]) and torch.equal(sc, scales[:, i, j])):
+                raise AssertionError(
+                    f"int8 cache, layer {i} {'kv'[j]}: {int((q != codes[:, i, j]).sum())} "
+                    f"codes and {int((sc != scales[:, i, j]).sum())} scales differ from the "
+                    "CPU quantizer's")
+    log(f"int8 {INT8_ARCH}: the cache's codes and bf16 scales over {LM_CONSISTENCY} steps x "
+        f"{len(layers)} layers x K, V ({x.numel()} values) bit-equal to _quantize_i8 on the CPU")
+    del x, codes, scales, cache, layers
+
+    dtype = torch.float32
+    plain_cache = {"seg0": [attention.init_gqa_cache(model.gqa, LM_BATCH, LM_CONSISTENCY, dtype,
+                                                     device="cuda")
+                            for _ in range(cfg.n_layers)]}
+    (plain, plain_rates), launched = run_app(
+        f"int8 {INT8_ARCH} unquantized decode {LM_CONSISTENCY} steps", counts,
+        lambda: teacher_forced(model, plain_cache, tokens))
+    (quant, quant_rates), _ = run_app(
+        f"int8 {INT8_ARCH} int8 decode {LM_CONSISTENCY} steps", counts,
+        lambda: teacher_forced(model, model.init_cache(LM_BATCH, LM_CONSISTENCY), tokens))
+    delta, scale = float((quant - plain).abs().max()), float(plain.abs().max())
+    agree = float((quant.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"int8 {INT8_ARCH} decode, batch {LM_BATCH}, tokens/s per {DECODE_BLOCK}-step block: "
+        f"unquantized {[round(r, 1) for r in plain_rates]}, int8 "
+        f"{[round(r, 1) for r in quant_rates]}; int8 against unquantized over "
+        f"{LM_CONSISTENCY} teacher-forced steps: max |dlogit| {delta:.3e} (max |logit| "
+        f"{scale:.3e}), argmax equal at {agree:.2%} of positions")
+    del model, plain, quant, plain_cache
+    torch.cuda.empty_cache()
+
+    scfg = smoke_config(get_arch(INT8_SMOKE_ARCH))
+    m = build_model(scfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    mq = build_model(scfg.replace(kv_cache_dtype="int8"), generator=torch.Generator("cuda"))
+    mq.load_state_dict(m.state_dict())
+    toks = torch.randint(0, scfg.vocab, (2, INT8_SMOKE_STEPS), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+    full, _ = teacher_forced(m, m.init_cache(2, INT8_SMOKE_STEPS), toks)
+    quant, _ = teacher_forced(mq, mq.init_cache(2, INT8_SMOKE_STEPS), toks)
+    worst = float((full - quant).abs().amax(dim=(0, 2)).max())
+    log(f"int8 {INT8_SMOKE_ARCH} smoke_config: max |dlogit| against the unquantized decode "
+        f"over {INT8_SMOKE_STEPS} steps {worst:.4f} (limit {INT8_SMOKE_GAP} at every step)")
+    if not worst < INT8_SMOKE_GAP:
+        raise AssertionError(f"int8 {INT8_SMOKE_ARCH}: the int8 decode is {worst} off")
 
 
 # ---------------------------------------------------------------------------
@@ -2454,6 +2806,7 @@ ZAMBA_TRAIN_STEPS = 4                                # zamba2-2.7b at its full c
 # (MLA + MoE + MTP) on the card against the CPU
 MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 3, 4
 ZERO_LAYERS, ZERO_STEPS = 2, 3                       # qwen3-1.7b at full width, 2 layers
+HUBERT_TRAIN_STEPS = 4                               # hubert-xlarge at its full config
 EF_DIVISORS = ((32, "topk_compress_argmax"), (4, "topk_compress_bitonic"))   # k = n / d
 TRAIN_LR = 3e-4                                      # repro's trainer default
 CARD_VS_CPU_RTOL, RESUME_RTOL = 1e-4, 1e-5
@@ -2492,6 +2845,7 @@ def train_loop(model, opt, steps: int, device, metrics: list = None):
         for _ in range(steps):
             t0 = time.perf_counter()
             step, batch = pipe.next()
+            batch = batch_for(model.cfg, None, batch)
             params, state, loss, m = step_fn(params, state, batch, step)
             losses.append(float(loss))
             secs.append(time.perf_counter() - t0)
@@ -2561,6 +2915,14 @@ def train_full_zamba2(counts: dict) -> None:
     train_full("zamba2-2.7b", ZAMBA_TRAIN_STEPS, counts)
 
 
+def train_full_hubert(counts: dict) -> None:
+    """(i): train() on hubert-xlarge at its full config (945,574,400
+    parameters, fp32 AdamW), HUBERT_TRAIN_STEPS steps of 8 x 128 frames
+    (the trainer's frames and labels, by ``batch_for``), blocked attention
+    as ``repro`` trains."""
+    train_full(AUDIO, HUBERT_TRAIN_STEPS, counts)
+
+
 def pallas_backward_refused(arch: str, impl: dict) -> None:
     """A model asked for the flash kernel or the SSD scan kernel cannot be
     trained; its backward raises repro's NotImplementedError instead of
@@ -2568,7 +2930,7 @@ def pallas_backward_refused(arch: str, impl: dict) -> None:
     cfg = smoke_config(get_arch(arch)).replace(**impl)
     model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
     model.requires_grad_(True)
-    batch = shard_batch(lm_batch(0, 2, 64, cfg.vocab))
+    batch = batch_for(cfg, None, shard_batch(lm_batch(0, 2, 64, cfg.vocab)))
     loss, _ = model.loss_fn(batch)
     try:
         loss.backward()
@@ -2825,6 +3187,11 @@ def run_train() -> dict:
     card_vs_cpu("deepseek-v3-671b", counts)
     pallas_backward_refused("deepseek-v3-671b", {"attention_impl": "pallas"})
     torch.cuda.empty_cache()
+    train_full_hubert(counts)
+    card_vs_cpu(VLM, counts)
+    for arch in (AUDIO, VLM):
+        pallas_backward_refused(arch, {"attention_impl": "pallas"})
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2858,6 +3225,7 @@ def main() -> None:
     measured["ssd_scan"] = check_ssd(rng)
     shapes = check_zamba2_shapes(rng)
     shapes.update(check_moe_shapes(rng))
+    shapes.update(check_vlm_audio_shapes(rng))
     measured.update(check_receive(rng))
     measured["flash_attention_bf16"] = check_flash_bf16(rng)
     check_inputs(rng)
@@ -2878,7 +3246,7 @@ def main() -> None:
         counts[name] = counts.get(name, 0) + n
     for name, n in run_ft(keep).items():
         counts[name] = counts.get(name, 0) + n
-    for name, n in run_lm().items():
+    for name, n in run_lm(shapes).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in run_train().items():
         counts[name] = counts.get(name, 0) + n

@@ -2,9 +2,11 @@
 
 Port of :mod:`repro.launch.serve`, with the same schedule: the prompt is
 prefilled by repeated decode steps (cache-exact), then ``gen`` greedy decode
-steps follow.  Serves every family ``build_model`` builds (dense, moe with
-GQA or MLA, ssm, hybrid).  Runs on the card unless ``device="cpu"`` is
-passed.
+steps follow.  Serves every family ``build_model`` builds that decodes
+(dense, moe with GQA or MLA, ssm, hybrid, and vlm, which takes no vision
+input: its cross caches stay the zeros ``init_cache`` makes, as in
+``repro``); the encoder-only audio family exits.  Runs on the card unless
+``device="cpu"`` is passed.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 32 --gen 32

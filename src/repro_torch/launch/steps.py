@@ -56,6 +56,10 @@ def make_train_step(model, opt: Optimizer, *, clip_norm: Optional[float] = 1.0):
 
 
 def make_prefill_step(model):
+    """``prefill_step(batch) -> logits``: the model's forward on the whole
+    batch dict (tokens; the vlm's ``vision_embeds``, the audio family's
+    ``frames``), with no gradient recorded."""
+
     @torch.no_grad()
     def prefill_step(batch):
         return model.forward(batch)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, smoke_config
@@ -29,11 +30,26 @@ from repro_torch.utils.tree import tree_leaves
 
 
 def batch_for(cfg, shape, pipeline_step_batch):
-    """The token pipeline's batch as the arch family's input dict: the
-    ``dense``, ``moe``, ``ssm`` and ``hybrid`` families take it as it is
-    (``repro``'s audio and vlm inputs come with the families ``build_model``
-    does not build yet)."""
-    return dict(pipeline_step_batch)
+    """The token pipeline's batch as the arch family's input dict, as
+    ``repro``'s: the audio family's frames (B, T, frame_dim) are drawn from
+    ``np.random.default_rng(tokens[0, 0])`` and its labels taken ``% vocab``;
+    the vlm adds ``vision_embeds`` (B, vision_tokens, vision_dim or d_model)
+    drawn from ``default_rng(0)``; the other families take the batch as it
+    is.  The draws are float32, on the tokens' device."""
+    b = dict(pipeline_step_batch)
+    tokens = b["tokens"]
+    if cfg.family == "audio":
+        rngk = np.random.default_rng(int(tokens[0, 0]))
+        B, T = tokens.shape
+        frames = rngk.normal(size=(B, T, cfg.frame_dim)).astype(np.float32)
+        b = {"frames": torch.from_numpy(frames).to(tokens.device),
+             "labels": (b["labels"] % cfg.vocab).to(torch.int32)}
+    elif cfg.family == "vlm":
+        rngk = np.random.default_rng(0)
+        shape = (tokens.shape[0], cfg.vision_tokens, cfg.vision_dim or cfg.d_model)
+        b["vision_embeds"] = torch.from_numpy(
+            rngk.normal(size=shape).astype(np.float32)).to(tokens.device)
+    return b
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,

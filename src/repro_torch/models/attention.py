@@ -1,27 +1,33 @@
-"""Attention: GQA/MHA (+ qk-norm, qkv-bias, RoPE) and MLA, for prefill and
-decode.
+"""Attention: GQA/MHA (+ qk-norm, qkv-bias, RoPE), MLA and cross-attention,
+for prefill and decode.
 
-Port of the GQA and MLA parts of :mod:`repro.models.attention`.  Prefill runs one of
-three implementations of the same function (``GQAConfig.attention_impl``):
+Port of :mod:`repro.models.attention`.  Prefill runs one of three
+implementations of the same function (``GQAConfig.attention_impl``):
 ``"naive"`` materialises the scores, ``"blocked"`` is the online softmax
 over KV blocks in plain PyTorch, and ``"pallas"`` (the name kept from
 ``repro``) is the hand-written flash attention kernel
 (:mod:`repro_torch.kernels.flash_attention`).  Decode attends one query step
 over the KV cache with :func:`naive_attention`, as ``repro`` does; no kernel
-runs there.
+runs there.  The cache is a :class:`KVCache` in the cache dtype or a
+:class:`QuantKVCache` of int8 codes with a bf16 scale per (token, head):
+:func:`gqa_decode` writes the new token's codes and scales in place and
+dequantizes the whole cache each step, as ``repro`` does.
 
 MLA (deepseek-v3's multi-head latent attention) expands its compressed
 cache into per-head keys (nope + rope, dk = dn + dr) and values (dv) for
 prefill, so the flash kernel runs it as MHA with dk != dv; its decode is
 the *absorbed* form, queries projected into the compressed c-space, so the
-cache stays at ``kv_lora_rank + qk_rope_dim`` a token.  Cross-attention
-waits for a later slice (ROADMAP Queue 1 item 11, deferred item 3).
+cache stays at ``kv_lora_rank + qk_rope_dim`` a token.
+
+Cross-attention (llama-3.2-vision, :func:`cross_attend`) attends text
+queries over the projected vision tokens, non-causally and without RoPE, so
+under ``"pallas"`` the flash kernel runs it with T != S.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -180,32 +186,96 @@ class KVCache(NamedTuple):
     # position is tracked by the caller (one scalar for the whole stack)
 
 
+class QuantKVCache(NamedTuple):
+    """int8 KV cache with a scale per (token, head), ``repro``'s: half the
+    decode cache reads of bf16."""
+
+    k_q: torch.Tensor    # (B, S, KH, hd) int8
+    k_s: torch.Tensor    # (B, S, KH, 1)  bf16 scale
+    v_q: torch.Tensor
+    v_s: torch.Tensor
+
+
+def _quantize_i8(x: torch.Tensor):
+    """x (..., hd) → (int8 codes, bf16 scale (..., 1)): the fp32 absolute max
+    over the head dim over 127, floored at 1e-8; x / scale in fp32, rounded
+    half to even and clipped to ±127."""
+    xf = x.float()
+    # 127 as a tensor on x's device: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which rounds apart from repro's
+    # division (and from the CPU's)
+    scale = torch.clamp_min(xf.abs().amax(-1, keepdim=True) / xf.new_tensor(127.0), 1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequantize_i8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale.float()
+
+
 def init_gqa_cache(cfg: GQAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                   device=None, quantized: bool = False) -> KVCache:
-    if quantized:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP Queue 1 item 11, deferred item 4)")
+                   device=None, quantized: bool = False) -> Union[KVCache, QuantKVCache]:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        sshape = shape[:-1] + (1,)
+
+        def zeros(sh, dt):
+            return torch.zeros(sh, dtype=dt, device=device)
+
+        return QuantKVCache(zeros(shape, torch.int8), zeros(sshape, torch.bfloat16),
+                            zeros(shape, torch.int8), zeros(sshape, torch.bfloat16))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def gqa_decode(p, cache: KVCache, x_t, cfg: GQAConfig, pos: int):
+def gqa_decode(p, cache: Union[KVCache, QuantKVCache], x_t, cfg: GQAConfig, pos: int):
     """One-token decode: x_t (B, 1, D), pos int — returns (cache, out).
 
     The new K/V are written into ``cache`` in place (what the JAX package
-    gets from donating the cache), and the same cache is returned."""
+    gets from donating the cache), and the same cache is returned; an int8
+    :class:`QuantKVCache` takes the new token's codes and scales and is
+    dequantized whole for the step's attention."""
     B = x_t.shape[0]
     positions = torch.full((B, 1), pos, device=x_t.device)
     q, k_t, v_t = _gqa_qkv(p, x_t, cfg, positions)
-    cache.k[:, pos:pos + 1] = k_t.to(cache.k.dtype)
-    cache.v[:, pos:pos + 1] = v_t.to(cache.v.dtype)
+    if isinstance(cache, QuantKVCache):
+        for buf, val in zip(cache, (*_quantize_i8(k_t), *_quantize_i8(v_t))):
+            buf[:, pos:pos + 1] = val
+        k = _dequantize_i8(cache.k_q, cache.k_s).to(x_t.dtype)
+        v = _dequantize_i8(cache.v_q, cache.v_s).to(x_t.dtype)
+    else:
+        cache.k[:, pos:pos + 1] = k_t.to(cache.k.dtype)
+        cache.v[:, pos:pos + 1] = v_t.to(cache.v.dtype)
+        k, v = cache.k, cache.v
     G = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, 1, cfg.n_kv_heads, G, cfg.head_dim)
     # mask out cache positions beyond pos via the causal mask with q_offset=pos
-    out = naive_attention(qg, cache.k, cache.v, causal=True, q_offset=pos)
+    out = naive_attention(qg, k, v, causal=True, q_offset=pos)
     out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
     return cache, torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (llama-3.2-vision): queries from text, K/V from vision tokens
+# ---------------------------------------------------------------------------
+
+
+def cross_attend(p, x, kv_embeds, cfg: GQAConfig) -> torch.Tensor:
+    """x (B, T, D) attends over kv_embeds (B, Sv, D); non-causal, no RoPE (and
+    no qkv bias, as in ``repro``)."""
+    B, T, _ = x.shape
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", kv_embeds, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_embeds, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, T, cfg.n_kv_heads, G, cfg.head_dim)
+    out = _run_attention(qg, k, v, causal=False, impl=cfg.attention_impl,
+                         block_k=cfg.block_k)
+    out = out.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Model assembly: decoder LMs (dense and MoE), Mamba2 stacks and zamba2
-hybrids, for serving and training.
+"""Model assembly: decoder LMs (dense, MoE and vision), Mamba2 stacks,
+zamba2 hybrids and the audio encoder, for serving and training.
 
-Port of :mod:`repro.models.build` for four families:
+Port of :mod:`repro.models.build` for all six families:
 
   dense — decoder transformer, GQA attention and a dense FFN (one segment of
       ``"self"`` blocks; ``prefill_last_only`` honoured).
@@ -12,6 +12,15 @@ Port of :mod:`repro.models.build` for four families:
       (``aux``) that ``loss_fn`` adds.  deepseek-v3's MTP head (``mtp``:
       ``proj``, one ``self_wide`` block, three norms) adds its next-next-
       token CE times ``mtp_weight``.
+  vlm — llama-3.2-vision: ``n_layers // cross_attn_period`` superblocks
+      (segment ``seg0`` of ``"vlm_super"`` units), each ``cross_attn_period
+      - 1`` self-attention blocks (``self``) closed by one cross-attention
+      block (``cross``) whose queries attend non-causally over the
+      projected vision tokens (``batch["vision_embeds"]`` through
+      ``vision_proj`` where ``vision_dim != d_model``).  Decode attends
+      over each cross block's cached vision K/V; ``init_cache`` makes them
+      zeros and ``decode_step`` leaves them as they are, as ``repro``'s
+      do, so a served vlm sees no image (ROADMAP Queue 3).
   ssm — Mamba2 (SSD) stack, attention-free.
   hybrid — zamba2: ``n_layers // hybrid_period`` superblocks, each
       ``hybrid_period`` Mamba2 blocks followed by one attention + FFN block
@@ -19,11 +28,16 @@ Port of :mod:`repro.models.build` for four families:
       whose gradient sums over its applications).  Decode keeps one KV cache
       per application.  Built by :class:`SSMLM`, as ``repro``'s
       ``build_ssm`` builds both.
+  audio — hubert: an encoder-only stack of non-causal ``"self"`` blocks
+      over ``batch["frames"]`` (``in_proj``), a per-frame classification
+      head and CE (:class:`AudioEncoder`); no decode (``init_cache`` and
+      ``decode_step`` are ``None``).
 
 ``repro``'s stacked parameters with a leading layer axis become an
 ``nn.ModuleList`` with one ``nn.ModuleDict`` per layer, under the same
 names (``segments/seg0/<l>/attn/wq``, ``segments/mamba/<l>/mamba/in_proj``;
-the hybrid's doubly stacked ``segments/mamba/<s>/<i>/...`` a list of lists),
+the hybrid's doubly stacked ``segments/mamba/<s>/<i>/...`` a list of lists,
+the vlm's ``segments/seg0/<s>/self/<i>/...`` beside ``.../<s>/cross/...``),
 so :func:`repro_torch.models.convert.load_jax_params` carries a JAX parameter
 tree across by name.  A model holds its weights and exposes ``repro``'s
 surface without the params argument: ``loss_fn(batch) -> (loss, metrics)``,
@@ -39,10 +53,13 @@ but for its matmuls' outputs, by ``torch.utils.checkpoint``'s selective
 policy; the hybrid's unit is the superblock), ``bwd_bf16_boundary`` (the
 attention blocks' outputs), ``chunked_ce`` / ``ce_chunk`` and ``z_loss``
 (the decoder's loss; the SSM and hybrid stacks' take ``z_loss`` only, as
-``repro``'s do).
+``repro``'s do; the audio encoder's takes neither).
 
-Families ``vlm`` and ``audio``, ``moe_impl="ep"`` and the int8 KV cache
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+``kv_cache_dtype="int8"`` gives the GQA caches of the dense and moe families
+int8 codes with bf16 scales (:class:`~repro_torch.models.attention.
+QuantKVCache`); MLA, the hybrid's shared block and the vlm keep theirs, as in
+``repro``.  ``moe_impl="ep"`` raises ``NotImplementedError`` (ROADMAP Queue 1
+item 11).
 """
 
 from __future__ import annotations
@@ -56,22 +73,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (GQAConfig, KVCache, MLACache, MLAConfig, gqa_attend,
-                                          gqa_decode, init_gqa, init_gqa_cache, init_mla,
-                                          init_mla_cache, mla_attend, mla_decode)
+from repro_torch.models.attention import (GQAConfig, KVCache, MLACache, MLAConfig,
+                                          QuantKVCache, cross_attend, gqa_attend, gqa_decode,
+                                          init_gqa, init_gqa_cache, init_mla, init_mla_cache,
+                                          mla_attend, mla_decode, naive_attention)
 from repro_torch.models.common import (Tree, bf16_boundary, chunked_softmax_cross_entropy,
                                        dense_init, embed_init, layer_norm, params, rms_norm,
                                        softmax_cross_entropy)
 from repro_torch.models.ffn import EP_DEFERRED, MoEConfig, dense_ffn, init_dense_ffn, init_moe
 from repro_torch.models.mamba import (MambaCache, SSMConfig, init_mamba2,
                                       init_mamba_cache, mamba2_decode, mamba2_forward)
-
-# what this slice does not build yet, each with its place in ROADMAP Queue 1
-# item 11's deferred order
-DEFERRED_FAMILIES = {
-    "vlm": "deferred item 3 (cross-attention)",
-    "audio": "deferred item 3 (the audio encoder)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -188,16 +199,19 @@ def _layer(fn: Callable, remat: str, *args):
 
 class Model(nn.Module):
     """A model of the port (``repro``'s ``Model``, holding its weights): the
-    embedding, final norm and head shared by both families."""
+    token embedding (which the audio encoder has not), final norm and head
+    shared by the families."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator,
+                 *, embed: bool = True):
         super().__init__()
         self.cfg = cfg
         self.device = device
         dtype = _dtype(cfg)
         kw = dict(dtype=dtype, device=device, generator=generator)
         V, D = cfg.vocab, cfg.d_model
-        self.embed = params({"table": embed_init((V, D), **kw)})
+        if embed:
+            self.embed = params({"table": embed_init((V, D), **kw)})
         self.final_norm = _init_norm(cfg, dtype, device)
         self.head = params({"w": dense_init((D, V), in_axis=0, **kw)})
 
@@ -253,11 +267,16 @@ def _attend(p, x: torch.Tensor, attn: AttnConfig) -> torch.Tensor:
 
 
 def _block_fwd(blk, x: torch.Tensor, aux, cfg: ArchConfig, attn: AttnConfig,
-               moe_cfg: Optional[MoEConfig] = None, kind: str = "self"):
-    """``repro``'s ``_block_fwd`` for a ``"self"``, ``"self_wide"`` or
-    ``"self_moe"`` block: ``(x, aux)``, a MoE block's balance loss added to
-    ``aux``."""
-    x = x + _attend(blk["attn"], _norm(x, blk["norm1"], cfg), attn)
+               moe_cfg: Optional[MoEConfig] = None, kind: str = "self",
+               vision: Optional[torch.Tensor] = None):
+    """``repro``'s ``_block_fwd`` for a ``"self"``, ``"self_wide"``,
+    ``"self_moe"`` or ``"cross"`` block (attending over ``vision``):
+    ``(x, aux)``, a MoE block's balance loss added to ``aux``."""
+    h = _norm(x, blk["norm1"], cfg)
+    if kind == "cross":
+        x = x + cross_attend(blk["attn"], h, vision, attn)
+    else:
+        x = x + _attend(blk["attn"], h, attn)
     h = _norm(x, blk["norm2"], cfg)
     if kind == "self_moe":
         y, al = blk["moe"](h, moe_cfg)
@@ -270,13 +289,29 @@ def _block_fwd(blk, x: torch.Tensor, aux, cfg: ArchConfig, attn: AttnConfig,
     return x, aux
 
 
-def _block_decode(blk, cache: Union[KVCache, MLACache], x: torch.Tensor, cfg: ArchConfig,
-                  attn: AttnConfig, pos: int, moe_cfg: Optional[MoEConfig] = None,
-                  kind: str = "self") -> torch.Tensor:
-    """``repro``'s ``_block_decode``; ``cache`` is updated in place.  An MoE
-    block routes the step's tokens in one group, ``ep`` by the gather path."""
+def _cross_decode(p, cache: KVCache, x_t: torch.Tensor, gqa: GQAConfig) -> torch.Tensor:
+    """Decode-time cross-attention over the cached vision K/V (non-causal)."""
+    B = x_t.shape[0]
+    q = torch.einsum("btd,dhk->bthk", x_t, p["wq"])
+    if gqa.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    G = gqa.n_heads // gqa.n_kv_heads
+    qg = q.reshape(B, 1, gqa.n_kv_heads, G, gqa.head_dim)
+    out = naive_attention(qg, cache.k, cache.v, causal=False)
+    out = out.reshape(B, 1, gqa.n_heads, gqa.head_dim)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+def _block_decode(blk, cache: Union[KVCache, QuantKVCache, MLACache], x: torch.Tensor,
+                  cfg: ArchConfig, attn: AttnConfig, pos: int,
+                  moe_cfg: Optional[MoEConfig] = None, kind: str = "self") -> torch.Tensor:
+    """``repro``'s ``_block_decode``; ``cache`` is updated in place (a
+    ``"cross"`` block's only read).  An MoE block routes the step's tokens
+    in one group, ``ep`` by the gather path."""
     h = _norm(x, blk["norm1"], cfg)
-    if isinstance(attn, MLAConfig):
+    if kind == "cross":
+        a = _cross_decode(blk["attn"], cache, h, attn)
+    elif isinstance(attn, MLAConfig):
         _, a = mla_decode(blk["attn"], cache, h, attn, pos)
     else:
         _, a = gqa_decode(blk["attn"], cache, h, attn, pos)
@@ -291,15 +326,18 @@ def _block_decode(blk, cache: Union[KVCache, MLACache], x: torch.Tensor, cfg: Ar
 
 
 # ---------------------------------------------------------------------------
-# decoder LM (dense, moe)
+# decoder LM (dense, moe, vlm)
 # ---------------------------------------------------------------------------
 
 _SEGMENT_FFN = {"self": "dense", "self_wide": "dense_wide", "self_moe": "moe"}
 
 
 class DecoderLM(Model):
-    """The ``dense`` and ``moe`` families: ``seg_plan`` as ``repro``'s, one
-    ``nn.ModuleList`` of blocks a segment (``segments.seg<i>``)."""
+    """The ``dense``, ``moe`` and ``vlm`` families: ``seg_plan`` as
+    ``repro``'s, one ``nn.ModuleList`` of units a segment
+    (``segments.seg<i>``): a block, or the vlm's superblock, an
+    ``nn.ModuleDict`` of ``self`` (a list of ``cross_attn_period - 1``
+    blocks) and ``cross`` (one block)."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator,
                  data_groups: int = 1):
@@ -309,17 +347,34 @@ class DecoderLM(Model):
         else:
             self.gqa = _gqa_cfg(cfg)
         self.moe_cfg = _moe_cfg(cfg, data_groups) if cfg.n_experts else None
-        n_dense = cfg.first_dense_layers if cfg.n_experts else cfg.n_layers
+        self.vlm = cfg.family == "vlm"
         self.seg_plan = []
-        if n_dense:
-            self.seg_plan.append(("self_wide" if (cfg.n_experts and cfg.d_ff_dense) else "self",
-                                  n_dense))
-        if cfg.n_experts and cfg.n_layers - n_dense > 0:
-            self.seg_plan.append(("self_moe", cfg.n_layers - n_dense))
-        self.segments = nn.ModuleDict({f"seg{i}": nn.ModuleList([
-            _init_block(cfg, self.attn_cfg, device, generator, ffn=_SEGMENT_FFN[kind],
-                        moe_cfg=self.moe_cfg) for _ in range(n)])
-            for i, (kind, n) in enumerate(self.seg_plan)})
+        if self.vlm:
+            self.period = cfg.cross_attn_period
+            self.seg_plan.append(("vlm_super", cfg.n_layers // self.period))
+        else:
+            n_dense = cfg.first_dense_layers if cfg.n_experts else cfg.n_layers
+            if n_dense:
+                self.seg_plan.append(
+                    ("self_wide" if (cfg.n_experts and cfg.d_ff_dense) else "self", n_dense))
+            if cfg.n_experts and cfg.n_layers - n_dense > 0:
+                self.seg_plan.append(("self_moe", cfg.n_layers - n_dense))
+
+        def unit(kind: str) -> nn.ModuleDict:
+            if kind == "vlm_super":
+                return nn.ModuleDict({
+                    "self": nn.ModuleList([_init_block(cfg, self.gqa, device, generator)
+                                           for _ in range(self.period - 1)]),
+                    "cross": _init_block(cfg, self.gqa, device, generator)})
+            return _init_block(cfg, self.attn_cfg, device, generator, ffn=_SEGMENT_FFN[kind],
+                               moe_cfg=self.moe_cfg)
+
+        self.segments = nn.ModuleDict({f"seg{i}": nn.ModuleList([unit(kind) for _ in range(n)])
+                                       for i, (kind, n) in enumerate(self.seg_plan)})
+        if self.vlm and cfg.vision_dim and cfg.vision_dim != cfg.d_model:
+            self.vision_proj = params({"w": dense_init(
+                (cfg.vision_dim, cfg.d_model), in_axis=0, dtype=_dtype(cfg), device=device,
+                generator=generator)})
         if cfg.mtp:
             dtype = _dtype(cfg)
             D = cfg.d_model
@@ -342,20 +397,38 @@ class DecoderLM(Model):
         for i, (kind, _) in enumerate(self.seg_plan):
             yield kind, self.segments[f"seg{i}"], f"seg{i}"
 
-    def _block(self, blk, x: torch.Tensor, aux: torch.Tensor, kind: str):
+    def _block(self, blk, x: torch.Tensor, aux: torch.Tensor, kind: str,
+               vision: Optional[torch.Tensor] = None):
+        """One unit of a segment; the remat unit is a block, or the vlm's
+        superblock (``repro``'s scan body)."""
+        if kind == "vlm_super":
+            for b in blk["self"]:
+                x, aux = _block_fwd(b, x, aux, self.cfg, self.gqa)
+            return _block_fwd(blk["cross"], x, aux, self.cfg, self.gqa, kind="cross",
+                              vision=vision)
         return _block_fwd(blk, x, aux, self.cfg, self.attn_cfg, self.moe_cfg, kind)
 
-    def _trunk(self, tokens):
+    def _vision_of(self, batch) -> Optional[torch.Tensor]:
+        """The vlm's vision tokens (B, Sv, D): ``batch["vision_embeds"]`` in the
+        model's dtype, through ``vision_proj`` where there is one."""
+        if not self.vlm:
+            return None
+        v = torch.as_tensor(batch["vision_embeds"], device=self.device).to(_dtype(self.cfg))
+        if hasattr(self, "vision_proj"):
+            v = v @ self.vision_proj["w"]
+        return v
+
+    def _trunk(self, tokens, vision: Optional[torch.Tensor] = None):
         x = self._embed(tokens)
         aux = torch.zeros((), device=self.device)
         for kind, blocks, _ in self._segments():
             for blk in blocks:
-                x, aux = _layer(self._block, self.cfg.remat, blk, x, aux, kind)
+                x, aux = _layer(self._block, self.cfg.remat, blk, x, aux, kind, vision)
         return x, aux
 
     def forward(self, batch) -> torch.Tensor:
         """Prefill: logits (B, T, V), or (B, 1, V) under ``prefill_last_only``."""
-        x, _ = self._trunk(batch["tokens"])
+        x, _ = self._trunk(batch["tokens"], self._vision_of(batch))
         if self.cfg.prefill_last_only:
             x = x[:, -1:]                 # serving: only next-token logits
         return self._logits(x)
@@ -366,7 +439,7 @@ class DecoderLM(Model):
         ``mtp_weight`` times the MTP head's CE: ``(loss + aux, {"ce",
         "aux"[, "mtp"]})``."""
         cfg = self.cfg
-        h, aux = self._trunk(batch["tokens"])
+        h, aux = self._trunk(batch["tokens"], self._vision_of(batch))
         x = _norm(h, self.final_norm, cfg)
         labels = self._labels(batch)
         if cfg.chunked_ce:
@@ -390,22 +463,41 @@ class DecoderLM(Model):
         return loss + aux, metrics
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, list]:
-        """``{"seg<i>": [cache] * layers}``: a ``KVCache`` a layer, or an
-        ``MLACache`` (the compressed c_kv and the shared rope key)."""
-        dtype = _cache_dtype(self.cfg)
-        if self.cfg.attn_kind == "mla":
+        """``{"seg<i>": [cache] * layers}``: a ``KVCache`` a layer (a
+        ``QuantKVCache`` under ``kv_cache_dtype="int8"``), or an ``MLACache``
+        (the compressed c_kv and the shared rope key); the vlm's is
+        ``{"seg0": {"self": [[KVCache] * (period - 1)] * n_super, "cross":
+        [KVCache over vision_tokens] * n_super}}``, the cross caches zeros."""
+        cfg, dtype = self.cfg, _cache_dtype(self.cfg)
+        if cfg.attn_kind == "mla":
             def one():
                 return init_mla_cache(self.mla, batch, max_len, dtype, device=self.device)
         else:
-            def one():
-                return init_gqa_cache(self.gqa, batch, max_len, dtype, device=self.device)
+            quantized = cfg.kv_cache_dtype == "int8" and not self.vlm
+
+            def one(length=max_len):
+                return init_gqa_cache(self.gqa, batch, length, dtype, device=self.device,
+                                      quantized=quantized)
+        if self.vlm:
+            return {name: {"self": [[one() for _ in range(self.period - 1)] for _ in blocks],
+                           "cross": [one(cfg.vision_tokens) for _ in blocks]}
+                    for _, blocks, name in self._segments()}
         return {name: [one() for _ in blocks] for _, blocks, name in self._segments()}
 
     def decode_step(self, cache, tokens, pos: int):
         x = self._embed(tokens)
+        cfg = self.cfg
         for kind, blocks, name in self._segments():
+            if kind == "vlm_super":
+                c = cache[name]
+                for sblk, self_caches, cross in zip(blocks, c["self"], c["cross"]):
+                    for blk, kv in zip(sblk["self"], self_caches):
+                        x = _block_decode(blk, kv, x, cfg, self.gqa, pos)
+                    x = _block_decode(sblk["cross"], cross, x, cfg, self.gqa, pos,
+                                      kind="cross")
+                continue
             for blk, c in zip(blocks, cache[name]):
-                x = _block_decode(blk, c, x, self.cfg, self.attn_cfg, pos, self.moe_cfg, kind)
+                x = _block_decode(blk, c, x, cfg, self.attn_cfg, pos, self.moe_cfg, kind)
         return self._logits(x), cache
 
 
@@ -497,6 +589,45 @@ class SSMLM(Model):
 
 
 # ---------------------------------------------------------------------------
+# audio encoder (hubert)
+# ---------------------------------------------------------------------------
+
+
+class AudioEncoder(Model):
+    """The ``audio`` family: ``in_proj`` over ``batch["frames"]``, ``n_layers``
+    non-causal ``"self"`` blocks (``segments.seg0``), ``final_norm`` and a
+    per-frame ``head``; encoder-only, so no cache and no decode step."""
+
+    init_cache = None
+    decode_step = None
+
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
+        super().__init__(cfg, device, generator, embed=False)
+        self.gqa = _gqa_cfg(cfg)._replace(causal=False)
+        self.in_proj = params({"w": dense_init((cfg.frame_dim, cfg.d_model), in_axis=0,
+                                               dtype=_dtype(cfg), device=device,
+                                               generator=generator)})
+        self.segments = nn.ModuleDict({"seg0": nn.ModuleList(
+            [_init_block(cfg, self.gqa, device, generator) for _ in range(cfg.n_layers)])})
+
+    def _block(self, blk, x: torch.Tensor) -> torch.Tensor:
+        return _block_fwd(blk, x, None, self.cfg, self.gqa)[0]
+
+    def forward(self, batch) -> torch.Tensor:
+        """Per-frame logits (B, T, vocab)."""
+        frames = torch.as_tensor(batch["frames"], device=self.device)
+        x = frames.to(_dtype(self.cfg)) @ self.in_proj["w"]
+        for blk in self.segments["seg0"]:
+            x = _layer(self._block, self.cfg.remat, blk, x)
+        return self._logits(x)
+
+    def loss_fn(self, batch):
+        """Mean per-frame CE of ``batch`` (frames, labels): ``(loss, {"ce"})``."""
+        loss = softmax_cross_entropy(self.forward(batch), self._labels(batch))
+        return loss, {"ce": loss}
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -507,19 +638,15 @@ def build_model(cfg: ArchConfig, device=None, generator: Optional[torch.Generato
     drawn from ``generator`` (default: seed 0 on that device); an MoE
     model routes its forward's tokens in ``data_groups`` groups, as
     ``repro``'s ``build_model(cfg, data_groups)``."""
-    if cfg.family in DEFERRED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP "
-                                  f"Queue 1 item 11, {DEFERRED_FAMILIES[cfg.family]})")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1 "
-                                  "item 11, deferred item 4)")
     if cfg.n_experts and cfg.moe_impl == "ep":
         raise NotImplementedError(EP_DEFERRED)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, device, generator, data_groups)
+    if cfg.family == "audio":
+        return AudioEncoder(cfg, device, generator)
     return SSMLM(cfg, device, generator)

@@ -225,11 +225,12 @@ def test_decode_logits_vs_repro(arch):
                else np.asarray(jl[:, -1].argmax(-1))[:, None].astype(np.int32))
 
 
-@pytest.mark.parametrize("arch", list(SERVED))
+@pytest.mark.parametrize("arch", list(SERVED) + ["llama-3.2-vision-90b"])
 def test_serve_tokens_match_repro(arch, monkeypatch, capsys):
     """The serving schedule: the same prompts (numpy, from the seed), prefill
     by decode, greedy decode — the same tokens as repro's serve when the port
-    is given repro's weights for that seed."""
+    is given repro's weights for that seed (the vlm with no vision input: its
+    zero cross caches, as repro serves it)."""
     seed = 3
 
     def build_with_jax_weights(cfg, device=None, generator=None):
@@ -268,17 +269,44 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
         tserve.serve("mamba2-2.7b")
 
 
-@pytest.mark.parametrize("name", sorted(n for n, c in configs.ARCHS.items()
-                                        if c.family not in ("dense", "moe", "ssm", "hybrid")))
-def test_deferred_archs_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.smoke_config(configs.get_arch(name)), device="cpu")
+@pytest.mark.parametrize("arch", ["qwen2-72b", "moonshot-v1-16b-a3b"])
+def test_int8_decode_logits_vs_repro(arch):
+    """kv_cache_dtype="int8" (GQA, and GQA with MoE): every decode step's
+    logits as repro's int8 decode, and the caches' codes and scales equal."""
+    jm, jp, tm = _model_pair(arch, kv_cache_dtype="int8", attention_impl="naive")
+    B, T = 2, 12
+    toks = _tokens((B, T), tm.cfg.vocab, seed=5)
+    jdecode, tdecode = jax.jit(jm.decode_step), make_decode_step(tm)
+    jcache, tcache = jm.init_cache(B, T), tm.init_cache(B, T)
+    assert all(isinstance(c, attention.QuantKVCache) for seg in tcache.values() for c in seg)
+    for pos in range(T):
+        jl, jcache = jdecode(jp, jcache, jnp.asarray(toks[:, pos:pos + 1]), pos)
+        tl, tcache = tdecode({"cache": tcache, "tokens": torch.from_numpy(toks[:, pos:pos + 1]),
+                              "pos": pos})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
+    for name, seg in tcache.items():
+        for layer, c in enumerate(seg):
+            for field, ours, theirs in zip(c._fields, c, jcache[name]):
+                np.testing.assert_array_equal(ours.float().numpy(),
+                                              np.asarray(theirs[layer], np.float32),
+                                              err_msg=f"{name}/{layer}/{field}")
 
 
-def test_int8_kv_cache_is_deferred():
-    cfg = configs.smoke_config(configs.get_arch("qwen3-1.7b")).replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_model(cfg, device="cpu")
+def test_int8_decode_close_to_unquantized():
+    """tests/test_archs_smoke.py's int8 check on the port: logits within 0.15
+    of the unquantized cache's at every step, the cache int8 underneath."""
+    cfg = configs.smoke_config(configs.get_arch("qwen2-72b")).replace(attention_impl="naive")
+    m = build_model(cfg, device="cpu")
+    mq = build_model(cfg.replace(kv_cache_dtype="int8"), device="cpu")
+    mq.load_state_dict(m.state_dict())
+    B, T = 2, 12
+    toks = torch.from_numpy(_tokens((B, T), cfg.vocab))
+    c, cq = m.init_cache(B, T), mq.init_cache(B, T)
+    for t in range(T):
+        lg, c = m.decode_step(c, toks[:, t:t + 1], t)
+        lq, cq = mq.decode_step(cq, toks[:, t:t + 1], t)
+        assert float((lg - lq).abs().max()) < 0.15
+    assert cq["seg0"][0].k_q.dtype == torch.int8 and cq["seg0"][0].k_q.any()
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])

@@ -2,9 +2,10 @@
 
 Weights come from repro's ``init`` and are carried across by
 ``load_jax_params`` (optimizer state by ``load_jax_opt_state``); batches are
-the same numpy draws.  ``loss_fn`` for the dense, ssm, hybrid and moe
-families at ``smoke_config`` (moe: moonshot with GQA, deepseek with MLA and
-MTP): the loss and its metrics (ce, aux, mtp) within 1e-5 relative, every
+the same numpy draws (the vlm's vision embeds and the audio family's frames
+by repro's ``batch_for``).  ``loss_fn`` for the dense, ssm, hybrid, moe,
+vlm and audio families at ``smoke_config`` (moe: moonshot with GQA,
+deepseek with MLA and MTP): the loss and its metrics (ce, aux, mtp) within 1e-5 relative, every
 gradient leaf within 1e-4 of its max |g|, plain and under ``chunked_ce``,
 ``z_loss`` and
 ``bwd_bf16_boundary``; ``remat`` full and dots give the gradients of none.
@@ -29,6 +30,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro import optim as joptim  # noqa: E402
 from repro.ft import restore_checkpoint as j_restore  # noqa: E402
 from repro.launch.steps import make_train_step as j_make_train_step  # noqa: E402
+from repro.launch.train import batch_for as j_batch_for  # noqa: E402
 from repro.launch.train import train as j_train  # noqa: E402
 from repro.models.build import build_model as j_build_model  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -46,7 +48,7 @@ from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FAMILIES = ["qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b", "moonshot-v1-16b-a3b",
-            "deepseek-v3-671b"]
+            "deepseek-v3-671b", "llama-3.2-vision-90b", "hubert-xlarge"]
 VARIANTS = {"plain": {}, "chunked_ce": dict(chunked_ce=True, ce_chunk=100),
             "z_loss": dict(z_loss=1e-3), "bwd_bf16_boundary": dict(bwd_bf16_boundary=True)}
 
@@ -73,8 +75,11 @@ def _model_pair(arch, seed=0, **overrides):
     return jm, jp, tm
 
 
-def _batch(vocab, step=0, B=2, T=16):
-    return lm_batch(step, B, T, vocab, seed=1)
+def _batch(cfg, step=0, B=2, T=16):
+    """``lm_batch``'s tokens as the family's inputs, by repro's ``batch_for``
+    (the audio family's frames, the vlm's vision embeds), as numpy."""
+    raw = lm_batch(step, B, T, cfg.vocab, seed=1)
+    return {k: np.array(v) for k, v in j_batch_for(cfg, None, raw).items()}
 
 
 def _grads(tm, batch):
@@ -157,7 +162,7 @@ def test_loss_fn_and_grads_vs_repro(arch, variant, monkeypatch):
     the port did (``_one_rounding``), and the two packages' fp32 cotangents
     are held to each other as the gradients are."""
     jm, jp, tm = _model_pair(arch, **VARIANTS[variant])
-    batch = _batch(tm.cfg.vocab)
+    batch = _batch(tm.cfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     if variant == "bwd_bf16_boundary":
         (loss, metrics, grads), ours, theirs = _one_rounding(monkeypatch, tm, batch)
@@ -165,7 +170,8 @@ def test_loss_fn_and_grads_vs_repro(arch, variant, monkeypatch):
     if variant == "bwd_bf16_boundary":
         assert theirs.keys() == ours.keys() and len(ours) == (
             tm.cfg.n_layers // tm.cfg.hybrid_period if tm.cfg.family == "hybrid"
-            else tm.cfg.n_layers + tm.cfg.mtp if tm.cfg.family in ("dense", "moe") else 0)
+            else tm.cfg.n_layers + tm.cfg.mtp if tm.cfg.family in ("dense", "moe", "vlm", "audio")
+            else 0)
         _close_grads({k: torch.from_numpy(v) for k, v in ours.items()},
                      {k: torch.from_numpy(v) for k, v in theirs.items()})
     else:
@@ -183,7 +189,7 @@ def test_loss_fn_and_grads_vs_repro(arch, variant, monkeypatch):
 def test_remat_gives_the_gradients_of_none(arch, remat):
     _, jp, tm = _model_pair(arch)
     _, _, rm = _model_pair(arch, remat=remat)
-    batch = _batch(tm.cfg.vocab, step=2)
+    batch = _batch(tm.cfg, step=2)
     loss, _, grads = _grads(tm, batch)
     rloss, _, rgrads = _grads(rm, batch)
     assert rloss.item() == loss.item()
@@ -211,7 +217,7 @@ def test_remat_dots_keeps_the_matmuls_and_recomputes_the_rest():
     for remat in ("none", "dots", "full"):
         _, _, tm = _model_pair("qwen3-1.7b", remat=remat)
         tm.requires_grad_(True)
-        loss, _ = tm.loss_fn({k: torch.from_numpy(v) for k, v in _batch(256).items()})
+        loss, _ = tm.loss_fn({k: torch.from_numpy(v) for k, v in _batch(tm.cfg).items()})
         with Count() as c:
             torch.autograd.grad(loss, list(tm.param_tree().values()))
         counts[remat] = c.mm
@@ -266,7 +272,7 @@ def test_make_train_step_vs_repro(arch):
     params = tm.param_tree()
     jstate, tstate = jopt.init(jp), topt.init(params)
     for step in range(2):
-        batch = _batch(tm.cfg.vocab, step=step)
+        batch = _batch(tm.cfg, step=step)
         jp, jstate, jloss, jmet = jstep(jp, jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                                         step)
         params, tstate, loss, met = tstep(params, tstate, {k: torch.from_numpy(v)
@@ -286,7 +292,7 @@ def test_make_train_step_vs_repro(arch):
 def test_train_step_grad_reduce_dtype_as_repro():
     jm, jp, tm = _model_pair("qwen3-1.7b", grad_reduce_dtype="bfloat16")
     jopt, topt = joptim.adamw(lr=1e-3), adamw(lr=1e-3)
-    batch = _batch(tm.cfg.vocab)
+    batch = _batch(tm.cfg)
     _, jstate, jloss, jmet = jax.jit(j_make_train_step(jm, jopt))(
         jp, jopt.init(jp), {k: jnp.asarray(v) for k, v in batch.items()}, 0)
     params = tm.param_tree()
@@ -444,14 +450,16 @@ def test_forward_only_calls_are_unchanged():
                                        ("zamba2-2.7b", dict(attention_impl="pallas")),
                                        ("zamba2-2.7b", dict(ssd_impl="pallas")),
                                        ("moonshot-v1-16b-a3b", dict(attention_impl="pallas")),
-                                       ("deepseek-v3-671b", dict(attention_impl="pallas"))])
+                                       ("deepseek-v3-671b", dict(attention_impl="pallas")),
+                                       ("llama-3.2-vision-90b", dict(attention_impl="pallas")),
+                                       ("hubert-xlarge", dict(attention_impl="pallas"))])
 def test_a_model_on_the_kernels_cannot_train(arch, impl):
     _, _, tm = _model_pair(arch, **impl)
     params = tm.param_tree()
     step = make_train_step(tm, adamw())
     with pytest.raises(NotImplementedError, match="no backward"):
         step(params, adamw().init(params),
-             {k: torch.from_numpy(v) for k, v in _batch(tm.cfg.vocab).items()}, 0)
+             {k: torch.from_numpy(v) for k, v in _batch(tm.cfg).items()}, 0)
 
 
 # -- the examples that train -------------------------------------------------------------------
