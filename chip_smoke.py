@@ -215,7 +215,31 @@ Phases, in order; any failure raises and the run exits non-zero:
              (within 1e-4); a backward through the flash kernel must raise
              for both families.  The vlm at full width does not train on
              one card: its embeddings and head alone are 2.1 B parameters.
-9. result  — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+9. mesh    — expert parallelism (moe_impl="ep") over a mesh of positions
+             as threads on the card, through build_cell: (a)
+             moonshot-v1-16b-a3b in fp32 cut to 24 of its 48 layers, every
+             width as published, on make_host_mesh(data=2, model=4): 8
+             positions of 16 experts each at the config's capacity factor;
+             a 4 x 2048 prefill, E x 24, its tokens/s and peak memory
+             printed beside phase 7's gather-path prefill, and the
+             collectives one forward records equal to the analytic count
+             (per position and MoE layer: two all-to-alls of E x C x D x 4
+             bytes, one all-gather of the position's tokens, one all-reduce
+             of the aux loss); (b) the same weights on 4 x 256 tokens at
+             capacity factor E / k (no slot can drop on either path), EP
+             against the gather path within 1e-4 of max |logit| (argmax
+             flips counted with their near ties), the expert loads against
+             C, and EP twice bit-equal; (c) moonshot's smoke_config with
+             moe_impl="ep" on a (2, 2) mesh: 10 train steps on the card
+             against the same on the CPU from the same weights (within 1e-4
+             relative), train(data=2, model_axis=2) on the card, and one
+             backward through an EP layer with finite, nonzero gradients;
+             (d) the dry run of deepseek-v3-671b's prefill_32k cell on meta
+             over the 256-position production mesh (dryrun.run_cell), its
+             RooflineRecord on the H100's constants and its wall time
+             printed (moonshot-v1-16b-a3b's as well where deepseek's passes
+             60 s).
+10. result — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
              the ``{"ok": true, ...}`` line last.
 """
 
@@ -246,7 +270,9 @@ from repro_torch.check import checker as stepcheck  # noqa: E402
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     HostBackend, Session, SpmdBackend, make_mesh, pack_spec, pack_tree, telemetry)
-from repro_torch.core.compat import P, axis_index, axis_size, run_positions, shard_map  # noqa: E402
+from repro_torch.core.compat import (  # noqa: E402
+    P, axis_index, axis_size, record_collectives, run_positions, shard_map)
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core.shards import ShardedStore  # noqa: E402
 from repro_torch.core.tiers import DiskTier, HostMemTier  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify, densify  # noqa: E402
@@ -274,8 +300,9 @@ from repro_torch.kernels.sparse_update.ref import sparse_scatter_add_plain  # no
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.topk_compress.ops import (  # noqa: E402
     BITONIC_MIN_K, topk_compress, topk_compress_plain)
+from repro_torch.launch import dryrun, make_host_mesh, shardings  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.launch.steps import build_cell, make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.launch.train import batch_for, train  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
@@ -1395,6 +1422,7 @@ def a_timings(rng) -> dict:
 
 
 WALLS: dict = {}     # label -> wall seconds of run_app's last run under it
+PEAKS: dict = {}     # label -> peak device memory (GiB) of run_app's last run under it
 
 
 def run_app(label: str, counts: dict, fn):
@@ -1414,6 +1442,7 @@ def run_app(label: str, counts: dict, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     WALLS[label] = wall
+    PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     launched = build.launch_counts()
     for name, c in launched.items():
         counts[name] = counts.get(name, 0) + c
@@ -3195,6 +3224,198 @@ def run_train() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: mesh — expert parallelism over mesh positions, build_cell, the
+# dry run and collective accounting
+# ---------------------------------------------------------------------------
+
+EP_ARCH, EP_LAYERS = "moonshot-v1-16b-a3b", 24      # phase 7's cut, every width as published
+EP_MESH = dict(data=2, model=4)                      # 8 positions, 16 of 64 experts each
+EP_GAP = 1e-4                                        # of max |logit|, EP against gather
+EP_TRAIN_MESH = dict(data=2, model_axis=2)
+DRYRUN_LIMIT_S = 60.0
+
+
+def ep_analytic_bytes(cfg, tokens: int, mesh) -> dict:
+    """One forward's collectives of each position under moe_impl="ep":
+    per MoE layer, two all-to-alls of (E, C, D) fp32 buffers, an all-gather
+    of the position's (chunk, D) output and an all-reduce of its fp32 aux."""
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    chunk = tokens // mesh.shape["data"] // mesh.shape["model"]
+    c = max(1, int(np.ceil(cfg.top_k * chunk / cfg.n_experts * cfg.capacity_factor)))
+    return {"all-to-all": n_moe * 2 * cfg.n_experts * c * cfg.d_model * 4,
+            "all-gather": n_moe * chunk * cfg.d_model * 4, "all-reduce": n_moe * 4}
+
+
+def ep_prefill(counts: dict) -> None:
+    """(a) and (b): moonshot-v1-16b-a3b at EP_LAYERS of 48 layers, fp32,
+    through build_cell on an EP_MESH mesh of positions on the card."""
+    cfg = get_arch(EP_ARCH).replace(attention_impl="pallas", n_layers=EP_LAYERS,
+                                    moe_impl="ep")
+    mesh = make_host_mesh(**EP_MESH, device="cuda")
+    shape = ShapeSpec("ep_prefill", LM_PREFILL, LM_BATCH, "prefill")
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, shape, mesh, generator=torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    model, (params, batch) = cell.model, cell.args
+    log(f"mesh {EP_ARCH} ep: {cell.param_count} parameters, {cfg.n_layers} of "
+        f"{get_arch(EP_ARCH).n_layers} layers, mesh {dict(mesh.shape)} ({mesh.size} "
+        f"positions, {cfg.n_experts // mesh.shape['model']} experts each), capacity "
+        f"{cfg.capacity_factor}, built in {time.perf_counter() - t0:.2f} s; a position holds "
+        f"{cell.local_bytes['params'] / 2**30:.3f} GiB of parameters under the specs")
+    prompt = prompt_of(batch)
+    cell.step(params, prompt)                                # warm-up, not counted
+
+    # (a) the prefill at B x T, its collectives recorded
+    kernels = {"flash_attention": cfg.n_layers}
+    label = f"mesh {EP_ARCH} ep prefill {LM_BATCH}x{LM_PREFILL}"
+    with record_collectives() as rec:
+        t0 = time.perf_counter()
+        logits, launched = run_app(label, counts, lambda: cell.step(params, batch))
+        rate = LM_BATCH * LM_PREFILL / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_launches(f"{EP_ARCH} ep prefill", launched, kernels)
+    if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{EP_ARCH} ep prefill: logits not finite or of the wrong shape")
+    del logits
+    # both rates by run_app's wall (the collection before it left out), as
+    # phase 7 logs its gather path's
+    gather_label = f"lm {EP_ARCH} prefill {LM_BATCH}x{LM_PREFILL}"
+    beside = (f"{LM_BATCH * LM_PREFILL / WALLS[gather_label]:.1f} tokens/s, peak "
+              f"{PEAKS[gather_label]:.3f} GiB" if gather_label in WALLS else "not run")
+    log(f"mesh {EP_ARCH} ep prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by "
+        f"run_app's wall ({rate:.1f} with its collection), peak device memory {peak:.3f} GiB; "
+        f"phase 7's gather path: {beside}")
+    want = ep_analytic_bytes(cfg, LM_BATCH * LM_PREFILL, mesh)
+    for linear in range(mesh.size):
+        got = rec.stats(linear).bytes_by_op
+        if got != want:
+            raise AssertionError(f"ep prefill: position {linear} recorded {got}, the analytic "
+                                 f"count is {want}")
+    st = rec.stats(0)
+    log(f"mesh {EP_ARCH} ep prefill collectives (each of {mesh.size} positions, equal to the "
+        f"analytic count): {json.dumps(st.bytes_by_op)} bytes, wire "
+        f"{json.dumps(st.wire_bytes_by_op)}, ops {json.dumps(st.count_by_op)}")
+
+    # (b) EP against the gather path on the same weights, at E / k
+    moe = model.moe_cfg
+    model.moe_cfg = moe._replace(capacity_factor=moe.n_experts / moe.top_k)
+    calls, hooks = moe_inputs(model)
+    ep1, launched = run_app(f"mesh {EP_ARCH} ep forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
+                            lambda: cell.step(params, prompt))
+    for h in hooks:
+        h.remove()
+    ep2 = cell.step(params, prompt)
+    model.moe_cfg = moe._replace(capacity_factor=moe.n_experts / moe.top_k, impl="gather")
+    plain, _ = run_app(f"mesh {EP_ARCH} gather forward {LM_BATCH}x{LM_CONSISTENCY}", counts,
+                       lambda: cell.step(params, prompt))
+    model.moe_cfg = moe
+    if not torch.equal(ep1, ep2):
+        raise AssertionError("ep forward: two runs on the card differ")
+    delta = float((ep1 - plain).abs().max())
+    scale = float(plain.abs().max())
+    near = plain.topk(2, dim=-1).values
+    ties = int(((near[..., 0] - near[..., 1]) <= 2 * delta).sum())
+    flips = int((ep1.argmax(-1) != plain.argmax(-1)).sum())
+    chunk = LM_BATCH * LM_CONSISTENCY // mesh.size
+    loads = [expert_loads(mod, x, cfg_)[0] for mod, x, cfg_ in calls]
+    log(f"mesh {EP_ARCH} ep vs gather at capacity E/k on {LM_BATCH}x{LM_CONSISTENCY}: max "
+        f"|dlogit| {delta:.3e}, max |logit| {scale:.3e}, ratio {delta / scale:.3e} (limit "
+        f"{EP_GAP}); argmax differs at {flips} of {LM_BATCH * LM_CONSISTENCY} positions, "
+        f"{ties} positions with the top two logits within 2 max |dlogit|; EP bit-equal run "
+        f"to run; largest expert load a data group {max(int(l.max()) for l in loads)} over "
+        f"{len(loads)} MoE layers (gather C {capacity(model.moe_cfg._replace(capacity_factor=moe.n_experts / moe.top_k), LM_BATCH * LM_CONSISTENCY)}"
+        f", EP C a position {chunk}: neither drops)")
+    if not delta <= EP_GAP * scale:
+        raise AssertionError(f"ep forward: {delta:.3e} off the gather path's (max |logit| "
+                             f"{scale:.3e})")
+    del cell, model, params, batch, prompt, ep1, ep2, plain, calls, loads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ep_training(counts: dict) -> None:
+    """(c): moonshot's smoke_config with moe_impl="ep" on a (2, 2) mesh."""
+    cfg = smoke_config(get_arch(EP_ARCH)).replace(moe_impl="ep")
+    weights = build_model(cfg, device="cpu").state_dict()
+    losses = []
+    for dev in ("cpu", "cuda"):
+        shardings.set_mesh_axis_sizes(make_host_mesh(EP_TRAIN_MESH["data"],
+                                                     EP_TRAIN_MESH["model_axis"], device=dev))
+        model = build_model(cfg, device=dev, data_groups=EP_TRAIN_MESH["data"])
+        model.load_state_dict(weights)
+        opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, SMOKE_STEPS))
+        metrics: list = []
+        (run, _), _ = run_app(f"mesh train {EP_ARCH} smoke ep {SMOKE_STEPS} steps on {dev}",
+                              counts, lambda: train_loop(model, opt, SMOKE_STEPS, dev, metrics))
+        check_losses(f"mesh train ep on {dev}", run, SMOKE_STEPS)
+        losses.append(run)
+    rel = max_rel(losses[1], losses[0])
+    log(f"mesh train {EP_ARCH} smoke ep {EP_TRAIN_MESH}: card against CPU, max relative loss "
+        f"difference {rel:.3e} (limit {CARD_VS_CPU_RTOL}); card losses {losses[1]}; aux "
+        f"{[round(m['aux'], 6) for m in metrics]}")
+    if not rel <= CARD_VS_CPU_RTOL:
+        raise AssertionError(f"ep training: the card's losses are {rel:.3e} off the CPU's")
+    with arch_cut(EP_ARCH, moe_impl="ep"):
+        run, _ = run_app(f"mesh train() {EP_ARCH} smoke ep {EP_TRAIN_MESH}", counts,
+                         lambda: train(EP_ARCH, smoke=True, steps=SMOKE_STEPS, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS,
+                                       **EP_TRAIN_MESH))
+    check_losses("mesh train() ep", run, SMOKE_STEPS)
+
+    # one backward through an EP layer: finite, nonzero gradients
+    blk = next(b for b in model.segments["seg1"])
+    x = torch.randn(TRAIN_BATCH, 16, cfg.d_model, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED), requires_grad=True)
+    for t in blk["moe"].parameters():
+        t.grad = None
+    y, aux = blk["moe"](x, model.moe_cfg)
+    (y.square().mean() + aux).backward()
+    grads = {n: t.grad for n, t in blk["moe"].named_parameters()} | {"x": x.grad}
+    bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())
+           or not bool(g.abs().sum() > 0)]
+    if bad:
+        raise AssertionError(f"ep backward: gradients missing, non-finite or zero: {bad}")
+    log(f"mesh ep backward on the card: {len(grads)} gradients finite and nonzero")
+    del model, blk, x, y, grads
+
+
+def ep_dryrun() -> None:
+    """(d): deepseek-v3-671b's prefill_32k cell on meta over the production
+    mesh (256 positions), its RooflineRecord on the H100's constants."""
+    out_dir = os.path.join(build.BUILD_DIR, "dryrun")
+    for arch in ("deepseek-v3-671b", EP_ARCH):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, "prefill_32k", "single", out_dir=out_dir, verbose=False)
+        wall = time.perf_counter() - t0
+        log(f"mesh dryrun {arch} prefill_32k single: wall {wall:.1f} s; {rec.summary()}")
+        log(f"mesh dryrun {arch}: flops/dev {rec.hlo_flops:.4e}, bytes/dev {rec.hlo_bytes:.4e}, "
+            f"collective bytes/dev {rec.collective_bytes:.4e}, args {rec.arg_bytes / 2**30:.3f} "
+            f"GiB, out {rec.out_bytes / 2**30:.3f} GiB, model flops {rec.model_flops_total:.4e}; "
+            f"note: {rec.note}")
+        if wall <= DRYRUN_LIMIT_S:
+            break
+        log(f"mesh dryrun {arch}: {wall:.1f} s is past {DRYRUN_LIMIT_S} s; {EP_ARCH} next")
+
+
+def run_mesh() -> dict:
+    """Phase 9 (mesh): expert parallelism over mesh positions on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts: dict = {}
+    saved = (dict(shardings._AXIS_SIZES), shardings.CURRENT_MESH)
+    try:
+        ep_prefill(counts)
+        ep_training(counts)
+    finally:
+        shardings._AXIS_SIZES, shardings.CURRENT_MESH = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_dryrun()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -3249,6 +3470,8 @@ def main() -> None:
     for name, n in run_lm(shapes).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in run_train().items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in run_mesh().items():
         counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:

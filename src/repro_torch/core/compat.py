@@ -12,9 +12,16 @@ operands stay on the device.
   once per position on its own thread, put the outputs back together;
 * :func:`axis_size` / :func:`axis_index` — the calling position's view of a
   named axis (or tuple of axes), read from thread-local state;
-* :func:`all_gather`, :func:`psum`, :func:`psum_scatter` — the collectives
-  under ``jax.lax``'s names, and :func:`all_gather_reduce`, an all_gather
-  whose reduction runs once for the whole group.
+* :func:`all_gather`, :func:`psum`, :func:`pmean`, :func:`psum_scatter`,
+  :func:`all_to_all` — the collectives under ``jax.lax``'s names and
+  semantics, and :func:`all_gather_reduce`, an all_gather whose reduction
+  runs once for the whole group;
+* :func:`record_collectives` — each collective a position calls adds its
+  operand bytes, its ring-model wire bytes and one count to that position's
+  :class:`~repro_torch.utils.hlo.CollectiveStats`, under the per-op rules of
+  :func:`~repro_torch.utils.hlo.collective_bytes_from_hlo`;
+* :func:`in_positions` — a context (a counting dispatch mode, say) entered
+  in every position the caller's mesh runs start.
 
 A collective over some axes meets the positions that share every other
 coordinate, in the order of the linearised index over the named axes — the
@@ -22,15 +29,21 @@ order ``shard_map``'s collectives give.  Each position keys its calls on a
 group by its own call counter (a generation), so a fast position never
 folds its next round into the current one.  The group's last position to
 arrive computes the result once and hands the same tensor to every member,
-so a collective's result is never written in place.  A position that raises
-breaks the mesh: every position waiting in a collective then raises too, and
-:func:`run_positions` raises a ``RuntimeError`` from the first failure.
+so a collective's result is never written in place.  Autograd sees each
+collective as the torch ops that combined the members' tensors, so a
+backward pass through a mesh run needs no collective of its own.  A position
+runs under the caller's grad mode (PyTorch keeps it per thread), the
+caller's collective recorder and the caller's :func:`in_positions`
+contexts.  A position that raises breaks the mesh: every position waiting in
+a collective then raises too, and :func:`run_positions` raises a
+``RuntimeError`` from the first failure.
 
 ``cost_analysis`` is not ported: nothing here is traced or compiled.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -39,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.threads import DThreadPool, ThreadState
+from repro_torch.utils.hlo import CollectiveStats
 
 # ---------------------------------------------------------------------------
 # Mesh and partition specs
@@ -86,12 +100,22 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device=None) -> Mesh:
     return Mesh(shape, names, device)
 
 
+def _canonical_part(part):
+    """``jax.sharding.PartitionSpec``'s form of one dimension's entry: a
+    tuple or list of one name is that name, an empty one ``None``."""
+    if isinstance(part, (tuple, list)):
+        part = tuple(part)
+        return None if not part else part[0] if len(part) == 1 else part
+    return part
+
+
 class PartitionSpec(tuple):
     """Per dimension: ``None`` (whole), an axis name, or a tuple of names
-    (split over their linearised index), as ``jax.sharding.PartitionSpec``."""
+    (split over their linearised index), as ``jax.sharding.PartitionSpec``
+    (which holds a tuple of one name as the name)."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, tuple(_canonical_part(p) for p in parts))
 
 
 P = PartitionSpec
@@ -147,12 +171,13 @@ class _Run:
 class _Position:
     """What a position's thread knows of itself."""
 
-    def __init__(self, run: _Run, linear: int):
+    def __init__(self, run: _Run, linear: int, recorder: Optional["CollectiveRecorder"]):
         self.run = run
         self.mesh = run.mesh
         self.linear = linear
         self.coords = run.mesh.coords(linear)
         self.generation: Dict[tuple, int] = {}
+        self.recorder = recorder
 
     def group(self, axes: Tuple[str, ...]) -> Tuple[tuple, List[int], int]:
         """``(key, members, index)`` of the group a collective over ``axes``
@@ -192,6 +217,68 @@ def _position() -> _Position:
         raise RuntimeError("a mesh collective or axis query runs only inside a "
                            "mesh position (shard_map / Session(backend='spmd'))")
     return pos
+
+
+class CollectiveRecorder:
+    """The collective traffic of mesh runs, position by position: a
+    :class:`~repro_torch.utils.hlo.CollectiveStats` for each linear index,
+    summed over every run made under :func:`record_collectives`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.by_position: Dict[int, CollectiveStats] = {}
+
+    def add(self, linear: int, op: str, operand: float, wire: float) -> None:
+        with self._lock:
+            st = self.by_position.setdefault(linear, CollectiveStats())
+            st.bytes_by_op[op] = st.bytes_by_op.get(op, 0.0) + operand
+            st.wire_bytes_by_op[op] = st.wire_bytes_by_op.get(op, 0.0) + wire
+            st.count_by_op[op] = st.count_by_op.get(op, 0) + 1
+
+    def stats(self, linear: int) -> CollectiveStats:
+        """Position ``linear``'s traffic (empty if it called no collective)."""
+        return self.by_position.get(linear, CollectiveStats())
+
+    def mean(self, n_positions: Optional[int] = None) -> CollectiveStats:
+        """The traffic per position: the sum over positions over
+        ``n_positions`` (default: the positions that called a collective);
+        counts are the largest any position made."""
+        n = n_positions or max(1, len(self.by_position))
+        out = CollectiveStats()
+        for st in self.by_position.values():
+            for op, b in st.bytes_by_op.items():
+                out.bytes_by_op[op] = out.bytes_by_op.get(op, 0.0) + b / n
+                out.wire_bytes_by_op[op] = (out.wire_bytes_by_op.get(op, 0.0)
+                                            + st.wire_bytes_by_op[op] / n)
+                out.count_by_op[op] = max(out.count_by_op.get(op, 0), st.count_by_op[op])
+        return out
+
+
+@contextlib.contextmanager
+def record_collectives(recorder: Optional[CollectiveRecorder] = None):
+    """Record the collectives of every mesh run this thread starts inside
+    the block: yields the :class:`CollectiveRecorder` (a new one unless
+    ``recorder`` is given)."""
+    recorder = CollectiveRecorder() if recorder is None else recorder
+    before = getattr(_local, "recorder", None)
+    _local.recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _local.recorder = before
+
+
+@contextlib.contextmanager
+def in_positions(make: Callable[[], Any]):
+    """Enter ``make()`` (a context manager) in every position of each mesh
+    run this thread starts inside the block — the way a thread-local
+    ``TorchDispatchMode`` reaches the positions' threads."""
+    before = tuple(getattr(_local, "contexts", ()))
+    _local.contexts = before + (make,)
+    try:
+        yield
+    finally:
+        _local.contexts = before
 
 
 def axis_size(axis) -> int:
@@ -262,14 +349,31 @@ def run_positions(mesh: Mesh, fn: Callable[[int], Any],
     raises a ``RuntimeError`` from the first failure.  A position still
     running ``timeout`` seconds after the start breaks the mesh the same
     way; one that is not in a collective then cannot be stopped, and is left
-    running (a daemon thread)."""
+    running (a daemon thread).  Each position runs under the caller's grad
+    and inference mode and current CUDA device, the caller's
+    :func:`record_collectives` recorder and its :func:`in_positions`
+    contexts."""
     run = _Run(mesh)
+    # PyTorch keeps grad mode and dispatch modes per thread: a position
+    # starts under the caller's
+    grad, inference = torch.is_grad_enabled(), torch.is_inference_mode_enabled()
+    # and a new thread has no current CUDA device (cuBLAS would warn)
+    card = torch.cuda.current_device() if torch.cuda.is_initialized() else None
+    recorder = getattr(_local, "recorder", None)
+    contexts = tuple(getattr(_local, "contexts", ()))
 
     def entry(linear: int, _param) -> Any:
         threading.current_thread().name = f"mesh-position-{linear}"
-        _local.position = _Position(run, linear)
+        _local.position = _Position(run, linear, recorder)
         try:
-            return fn(linear)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.inference_mode(inference))
+                stack.enter_context(torch.set_grad_enabled(grad))
+                if card is not None:
+                    stack.enter_context(torch.cuda.device(card))
+                for make in contexts:
+                    stack.enter_context(make())
+                return fn(linear)
         except BaseException as e:  # DThread records it; the mesh breaks
             run.fail(e)
             raise
@@ -334,21 +438,56 @@ def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
 
 
+def _nbytes(x) -> float:
+    total = 0.0
+
+    def add(leaf):
+        nonlocal total
+        t = _as_tensor(leaf)
+        total += t.numel() * t.element_size()
+    tree_map(add, x)
+    return total
+
+
+def _record(op: str, axis_name, x) -> None:
+    """Add a collective over ``axis_name`` of operand ``x`` to the calling
+    position's recorder, if the run has one: ``repro.utils.hlo``'s operand
+    rules (all-reduce, all-to-all: the operand; all-gather: the output over
+    g, the operand again; reduce-scatter: the input) and its ring model of
+    the wire bytes (all-reduce 2 (g-1)/g of the operand; all-gather (g-1)/g
+    of the output; reduce-scatter and all-to-all (g-1)/g of the operand)."""
+    pos = _position()
+    if pos.recorder is None:
+        return
+    g = math.prod(pos.mesh.shape[a] for a in _axes(axis_name))
+    operand = _nbytes(x)
+    if op == "all-reduce":
+        wire = 2.0 * operand * (g - 1) / g
+    elif op == "all-gather":
+        wire = operand * g * (g - 1) / g
+    else:  # reduce-scatter, all-to-all
+        wire = operand * (g - 1) / g
+    pos.recorder.add(pos.linear, op, operand, wire)
+
+
 def all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False):
     """Every member's ``x`` stacked (``tiled``: concatenated) along ``axis``
     in axis-index order; a tuple, list or dict of tensors gathers leafwise."""
     def gather(leaves):
         leaves = [_as_tensor(v) for v in leaves]
         return torch.cat(leaves, axis) if tiled else torch.stack(leaves, axis)
+    _record("all-gather", axis_name, x)
     return _rendezvous(axis_name, x, lambda vs: _transpose(vs, gather))
 
 
 def all_gather_reduce(x, axis_name, fn: Callable):
     """``fn(all_gather(x, axis_name))``, computed once for the group and the
     same result handed to every member — a replicated reduction of the
-    gathered stack (the dense sum, the densified sparse pairs)."""
+    gathered stack (the dense sum, the densified sparse pairs); recorded as
+    the all-gather it is."""
     def gather(leaves):
         return torch.stack([_as_tensor(v) for v in leaves])
+    _record("all-gather", axis_name, x)
     return _rendezvous(axis_name, x, lambda vs: fn(_transpose(vs, gather)))
 
 
@@ -361,7 +500,15 @@ def _sum(leaves):
 
 def psum(x, axis_name):
     """The sum of every member's ``x`` (leafwise for a tuple, list or dict)."""
+    _record("all-reduce", axis_name, x)
     return _rendezvous(axis_name, x, lambda vs: _transpose(vs, _sum))
+
+
+def pmean(x, axis_name):
+    """The mean of every member's ``x``: :func:`psum` over the group size."""
+    n = axis_size(axis_name)
+    _record("all-reduce", axis_name, x)
+    return _rendezvous(axis_name, x, lambda vs: _transpose(vs, lambda l: _sum(l) / n))
 
 
 def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
@@ -381,7 +528,37 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
             raise ValueError(f"psum_scatter: dimension {scatter_dimension} has size "
                              f"{size}, the group has {n} positions")
         return list(torch.unbind(total, scatter_dimension))
+    _record("reduce-scatter", axis_name, x)
     return _rendezvous(axis_name, x, scatter, per_member=True)
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int, concat_axis: int, *,
+               tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_to_all``: member ``j`` receives block ``j`` of every
+    member's ``x`` along ``split_axis``, in axis-index order, and places them
+    along ``concat_axis``.  ``tiled``: ``x``'s ``split_axis`` is cut into
+    one chunk a member and the chunks concatenated (no dimension added or
+    removed); otherwise ``split_axis`` must have the group's size, is
+    removed, and the blocks are stacked at ``concat_axis`` of the output
+    (``np.insert(np.delete(x.shape, split_axis), concat_axis, n)``)."""
+    n = axis_size(axis_name)
+    size = x.shape[split_axis]
+    if tiled and size % n:
+        raise ValueError(f"all_to_all: split_axis {split_axis} of size {size} does not "
+                         f"split over {n} positions")
+    if not tiled and size != n:
+        raise ValueError(f"all_to_all: split_axis {split_axis} has size {size}, the group "
+                         f"has {n} positions")
+
+    def exchange(values):
+        values = [_as_tensor(v) for v in values]
+        if tiled:
+            parts = [torch.chunk(v, n, split_axis) for v in values]
+            return [torch.cat([p[j] for p in parts], concat_axis) for j in range(n)]
+        parts = [torch.unbind(v, split_axis) for v in values]
+        return [torch.stack([p[j] for p in parts], concat_axis) for j in range(n)]
+    _record("all-to-all", axis_name, x)
+    return _rendezvous(axis_name, x, exchange, per_member=True)
 
 
 # ---------------------------------------------------------------------------

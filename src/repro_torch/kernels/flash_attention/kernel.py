@@ -8,7 +8,9 @@ dk), k (B, S, KH, dk), v (B, S, KH, dv) → (B, T, KH, G, dv): query head
 
 A CPU tensor takes the plain version (:func:`attention_bhsd_ref` after the
 JAX wrapper's fold of (KH, G) into the head axis); a CUDA tensor launches
-the kernel or raises.  Neither is differentiable: ``repro``'s Pallas kernel
+the kernel or raises.  A meta tensor (the dry run's shapes, no values) runs
+the plain version for its shapes and operation counts only; any other
+device raises.  Neither is differentiable: ``repro``'s Pallas kernel
 has no backward, so a call recorded for a gradient gets an output whose
 backward raises (:func:`~repro_torch.kernels.build.forward_only`), on the
 card and on the CPU alike.
@@ -62,6 +64,17 @@ def gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     return out.reshape(B, KH, G, T, dv).permute(0, 3, 1, 2, 4)
 
 
+def _meta(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor is a meta tensor (the dry run's shapes)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention runs on cpu or cuda with q, k, v on one device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (B, T, KH, G, dk); k (B, S, KH, dk); v (B, S, KH, dv) → (B, T, KH, G, dv)
@@ -80,9 +93,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"not match q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return gqa_plain(q, k, v, causal=causal, q_offset=q_offset)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention runs on cpu or cuda with q, k, v on one device, "
-                         f"got {q.device}, {k.device}, {v.device}")
+    if _meta(q, k, v):
+        # shapes only: nothing runs, so the plain version's ops stand in
+        return gqa_plain(q, k, v, causal=causal, q_offset=q_offset)
+    _check_cuda(q, k, v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash_attention kernel takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -122,8 +136,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if build.differentiated(q, k, v):
         return build.forward_only(NO_BACKWARD, lambda *t: flash_attention_bhsd(
             *t, causal=causal, q_offset=q_offset), q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _meta(q, k, v):
         return attention_bhsd_ref(q, k, v, causal=causal, q_offset=q_offset)
+    _check_cuda(q, k, v)
     out = flash_attention_gqa(q[:, :, None, None], k[:, :, None], v[:, :, None],
                               causal=causal, q_offset=q_offset)
     return out[:, :, 0, 0]

@@ -18,7 +18,9 @@ as consecutive sub-chunks (:func:`sub_chunk`), each an item of the chain:
 the same recurrence.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the chunked
-algorithm); a CUDA tensor launches the kernel or raises.  Neither is
+algorithm); a CUDA tensor launches the kernel or raises; meta tensors (the
+dry run's shapes, no values) run the plain version for shapes and operation
+counts only; any other device raises.  Neither is
 differentiable: ``repro``'s Pallas kernel has no backward, so a call
 recorded for a gradient gets an output whose backward raises
 (:func:`~repro_torch.kernels.build.forward_only`), on the card and on the
@@ -86,6 +88,10 @@ def ssd_scan(xbar: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tens
     if xbar.device.type == "cpu":
         return ssd_scan_plain(xbar, a, B, C, chunk)[0]
     devices = {t.device for t in (xbar, a, B, C)}
+    if devices == {torch.device("meta")}:
+        # shapes only (the dry run): nothing runs, so the plain version's
+        # ops stand in
+        return ssd_scan_plain(xbar, a, B, C, chunk)[0]
     if xbar.device.type != "cuda" or len(devices) != 1:
         raise ValueError(f"ssd_scan runs on cpu or cuda with every input on one device, "
                          f"got {sorted(map(str, devices))}")

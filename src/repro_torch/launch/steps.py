@@ -1,21 +1,34 @@
-"""The step functions: train_step, prefill_step and decode_step.
+"""Step builders: train_step, prefill_step and decode_step, and the cell.
 
 Port of :mod:`repro.launch.steps`.  The model holds its own weights, so the
 serving steps take only the batch, and the train step differentiates the
 model's own parameter tree (``model.param_tree()``) and updates it in place
 — what the JAX step's donated params and optimizer state stand in for.
-Sharding and ``build_cell`` belong to a later slice (ROADMAP Queue 1 item 11,
-deferred item 6).
+
+``build_cell`` assembles everything a dry run or a real run needs for one
+(arch × shape × mesh) cell: the model (with ``data_groups`` the mesh's dp
+degree), the step, its inputs and their PartitionSpecs.  On
+``device="meta"`` nothing is allocated, as ``repro``'s ShapeDtypeStructs
+allocate nothing: the model is built on meta and the inputs are meta
+tensors of every input's shape and dtype.  On the card or the CPU the cell
+holds the model with its weights and inputs drawn from ``generator``.  The
+mesh's positions share one device, so the specs give each position's bytes
+(``Cell.local_bytes``), not where the bytes live.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.optim import Optimizer, clip_by_global_norm
-from repro_torch.utils.tree import tree_leaves, tree_unflatten
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.core.compat import Mesh, P
+from repro_torch.device import resolve_device
+from repro_torch.launch import shardings as sh
+from repro_torch.optim import Optimizer, adamw, clip_by_global_norm
+from repro_torch.utils.tree import tree_bytes, tree_count, tree_leaves, tree_unflatten
 
 
 def make_train_step(model, opt: Optimizer, *, clip_norm: Optional[float] = 1.0):
@@ -74,3 +87,197 @@ def make_decode_step(model):
         return logits, cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# cell assembly
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(model) -> Dict[str, torch.Tensor]:
+    """The model's parameter tree as meta tensors (shapes and dtypes only)."""
+    return {name: torch.empty_like(t, device="meta") for name, t in model.param_tree().items()}
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, model) -> dict:
+    """Meta stand-ins for every model input of this cell (``repro``'s
+    ShapeDtypeStructs); a decode cell's cache is the model's own
+    ``init_cache`` on meta."""
+    B, T = shape.global_batch, shape.seq_len
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    act = bf16 if cfg.dtype != "float32" else f32
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            batch = {"frames": sds((B, T, cfg.frame_dim), act), "labels": sds((B, T), i32)}
+        else:
+            batch = {"tokens": sds((B, T), i32), "labels": sds((B, T), i32)}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = sds((B, cfg.vision_tokens, cfg.vision_dim or cfg.d_model),
+                                         act)
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch
+    # decode: one new token against a seq_len-deep cache
+    cache = model.init_cache(B, T)
+    if model.device.type != "meta":
+        cache = _to_meta(cache)
+    batch = {"cache": cache, "tokens": sds((B, 1), i32), "pos": sds((), i32)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = sds((B, cfg.vision_tokens, cfg.vision_dim or cfg.d_model), act)
+    return batch
+
+
+def _to_meta(tree):
+    return tree_unflatten(tree, [torch.empty_like(t, device="meta") for t in tree_leaves(tree)])
+
+
+def batch_shard_specs(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, model, batch_sds) -> Any:
+    dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    if shape.kind in ("train", "prefill"):
+        specs = {k: P(dp, *([None] * (len(v.shape) - 1))) for k, v in batch_sds.items()}
+        return sh.sanitize_tree(specs, batch_sds, mesh)
+    specs = {"cache": sh.cache_specs(batch_sds["cache"], mesh),
+             "tokens": P(dp, None),
+             "pos": P()}
+    if "vision_embeds" in batch_sds:
+        specs["vision_embeds"] = P(dp, None, None)
+    return sh.sanitize_tree(specs, batch_sds, mesh)
+
+
+def _materialize(batch_sds: dict, cfg: ArchConfig, shape: ShapeSpec, model, device,
+                 generator: Optional[torch.Generator]) -> dict:
+    """Inputs of the stand-ins' shapes and dtypes on ``device``: integer
+    tokens and labels below the vocabulary, float inputs N(0, 1), a decode
+    cell's cache the model's zeros and its position the last slot."""
+    out = {}
+    for name, x in batch_sds.items():
+        if name == "cache":
+            out[name] = model.init_cache(shape.global_batch, shape.seq_len)
+        elif name == "pos":
+            out[name] = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
+        elif x.dtype.is_floating_point:
+            out[name] = torch.randn(x.shape, generator=generator, device=device).to(x.dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, x.shape, generator=generator,
+                                      device=device, dtype=x.dtype)
+    return out
+
+
+@dataclass
+class Cell:
+    """One (arch × shape × mesh) cell.  ``step(*args)`` runs the train,
+    prefill or decode step with the cell's mesh registered
+    (:func:`~repro_torch.launch.shardings.set_mesh_axis_sizes`); ``args``
+    are meta tensors on a meta cell, the real inputs otherwise.
+    ``local_bytes`` holds one position's bytes under the specs:
+    ``params``, ``opt`` (the optimizer state), ``batch``, ``out`` (the
+    step's outputs) and ``alias`` (outputs that reuse an input's memory, as
+    the JAX step's donated buffers do)."""
+
+    cfg: ArchConfig
+    shape: ShapeSpec
+    mesh: Mesh
+    model: Any
+    step_fn: Callable
+    args: tuple
+    param_count: int
+    param_bytes: int
+    specs: dict = field(default_factory=dict)
+    local_bytes: dict = field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def step(self, *args):
+        sh.set_mesh_axis_sizes(self.mesh)
+        return self.step_fn(*args)
+
+
+def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *, fsdp: bool = False,
+               opt: Optional[Optimizer] = None, device=None,
+               generator: Optional[torch.Generator] = None) -> Cell:
+    """Assemble the model, step and inputs for one (arch × shape × mesh) on
+    ``device`` (``None``: the card; ``"meta"``: allocating nothing)."""
+    from repro_torch.models.build import build_model
+
+    device = resolve_device(device)
+    sh.set_mesh_axis_sizes(mesh)
+    dp_axes = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    dp = 1
+    for ax in dp_axes:
+        dp *= int(mesh.shape[ax])
+    cfg = cfg.replace(batch_axes=dp_axes)
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device).manual_seed(0)
+    model = build_model(cfg, device, generator, data_groups=dp)
+
+    params = model.param_tree()
+    p_specs = sh.param_specs(params, fsdp=fsdp)
+    batch_sds = input_specs(cfg, shape, model)
+    b_specs = batch_shard_specs(cfg, shape, mesh, model, batch_sds)
+    batch = batch_sds if device.type == "meta" else _materialize(
+        batch_sds, cfg, shape, model, device, generator)
+
+    vocab_ax = "model" if cfg.vocab % int(mesh.shape["model"]) == 0 else None
+    B, T = shape.global_batch, shape.seq_len
+    out_T = T if (shape.kind == "prefill" and not cfg.prefill_last_only) else 1
+    logits_shape = (B, out_T, cfg.vocab)
+    logits_spec = sh.sanitize_spec(P(dp_axes, None, vocab_ax), logits_shape, mesh)
+    logits_local = sh.local_bytes([torch.empty(logits_shape, device="meta",
+                                               dtype=getattr(torch, cfg.dtype))],
+                                  [logits_spec], mesh)
+    local = {"params": sh.local_bytes(params, p_specs, mesh),
+             "batch": sh.local_bytes(batch_sds, b_specs, mesh), "opt": 0}
+    specs = {"params": p_specs, "batch": b_specs, "logits": logits_spec}
+
+    if shape.kind == "train":
+        opt = opt or adamw(lr=3e-4)
+        opt_state = opt.init(params)
+        o_specs = sh.param_specs(opt_state, fsdp=fsdp)
+        local["opt"] = sh.local_bytes(opt_state, o_specs, mesh)
+        # new params and state, the loss and the grad norm (fp32 scalars)
+        local["out"] = local["params"] + local["opt"] + 8
+        local["alias"] = local["params"] + local["opt"]        # donated
+        specs["opt"] = o_specs
+        train_step = make_train_step(model, opt)
+
+        def step_fn(params, opt_state, batch, step):
+            return train_step(params, opt_state, batch, _as_int(step, 0))
+
+        step = torch.empty((), dtype=torch.int32, device="meta") if device.type == "meta" \
+            else torch.tensor(0, dtype=torch.int32)
+        args = (params, opt_state, batch, step)
+    elif shape.kind == "prefill":
+        prefill_step = make_prefill_step(model)
+        local["out"], local["alias"] = logits_local, 0
+
+        def step_fn(params, batch):
+            return prefill_step(batch)
+
+        args = (params, batch)
+    else:  # decode
+        decode_step = make_decode_step(model)
+        cache_local = sh.local_bytes(batch_sds["cache"], b_specs["cache"], mesh)
+        local["out"] = logits_local + cache_local
+        local["alias"] = cache_local                          # updated in place
+
+        def step_fn(params, batch):
+            return decode_step(dict(batch, pos=_as_int(batch["pos"], T - 1)))
+
+        args = (params, batch)
+
+    return Cell(cfg, shape, mesh, model, step_fn, args, tree_count(params), tree_bytes(params),
+                specs, local)
+
+
+def _as_int(x, meta_value: int) -> int:
+    """A step's scalar input as an int; a meta scalar has no value, so it
+    stands for ``meta_value``."""
+    if isinstance(x, torch.Tensor):
+        return meta_value if x.device.type == "meta" else int(x)
+    return int(x)

@@ -6,9 +6,10 @@ passed.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --full \
         --steps 50 --batch 8 --seq 128 --ckpt-dir build/ckpt
 
-One card: ``data`` and ``model_axis`` above 1 (a mesh over several cards,
-sharding) raise ``NotImplementedError`` (ROADMAP Queue 1 item 11, deferred
-item 6).
+``data`` and ``model_axis`` make a mesh of positions as threads on the one
+device (``make_host_mesh``), registered for the EP MoE
+(``set_mesh_axis_sizes``), and the model routes its tokens in ``data``
+groups, as ``repro``'s trainer does.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data.pipeline import LMDataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.ft import AsyncCheckpointer, latest_step, restore_checkpoint
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.build import build_model
 from repro_torch.optim import adamw, warmup_cosine
@@ -61,16 +64,13 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     latest checkpoint, if any) and return the losses of the steps run.
     Each log line gives the step's own seconds and the mean so far."""
     device = resolve_device(device)
-    if data > 1 or model_axis > 1:
-        raise NotImplementedError(
-            f"train(data={data}, model_axis={model_axis}): the port trains on one card; "
-            "a mesh over several cards is ROADMAP Queue 1 item 11, deferred item 6 "
-            "(sharding and build_cell)")
     cfg = get_arch(arch)
     if smoke:
         cfg = smoke_config(cfg)
+    mesh = make_host_mesh(data=data, model=model_axis, device=device)
+    sh.set_mesh_axis_sizes(mesh)
     model = build_model(cfg, device=device,
-                        generator=torch.Generator(device).manual_seed(seed))
+                        generator=torch.Generator(device).manual_seed(seed), data_groups=data)
     # total_steps fixes the LR schedule independent of this invocation's
     # horizon, so checkpoint-resume reproduces the uninterrupted run exactly
     total = total_steps or steps

@@ -58,8 +58,11 @@ attention blocks' outputs), ``chunked_ce`` / ``ce_chunk`` and ``z_loss``
 ``kv_cache_dtype="int8"`` gives the GQA caches of the dense and moe families
 int8 codes with bf16 scales (:class:`~repro_torch.models.attention.
 QuantKVCache`); MLA, the hybrid's shared block and the vlm keep theirs, as in
-``repro``.  ``moe_impl="ep"`` raises ``NotImplementedError`` (ROADMAP Queue 1
-item 11).
+``repro``.  ``moe_impl="ep"`` runs the forward's MoE layers over the mesh
+that :func:`repro_torch.launch.shardings.set_mesh_axis_sizes` registered
+(``build_cell`` and ``train`` register theirs); decode routes by the gather
+path, as ``repro``'s does.  On ``device="meta"`` nothing is allocated and
+no weight is drawn (the shapes of ``repro``'s ``jax.eval_shape``).
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from repro_torch.models.attention import (GQAConfig, KVCache, MLACache, MLAConfi
 from repro_torch.models.common import (Tree, bf16_boundary, chunked_softmax_cross_entropy,
                                        dense_init, embed_init, layer_norm, params, rms_norm,
                                        softmax_cross_entropy)
-from repro_torch.models.ffn import EP_DEFERRED, MoEConfig, dense_ffn, init_dense_ffn, init_moe
+from repro_torch.models.ffn import MoEConfig, dense_ffn, init_dense_ffn, init_moe
 from repro_torch.models.mamba import (MambaCache, SSMConfig, init_mamba2,
                                       init_mamba_cache, mamba2_decode, mamba2_forward)
 
@@ -635,15 +638,16 @@ class AudioEncoder(Model):
 def build_model(cfg: ArchConfig, device=None, generator: Optional[torch.Generator] = None,
                 *, data_groups: int = 1) -> Model:
     """The model of ``cfg`` on ``device`` (``None``: the card), its weights
-    drawn from ``generator`` (default: seed 0 on that device); an MoE
-    model routes its forward's tokens in ``data_groups`` groups, as
-    ``repro``'s ``build_model(cfg, data_groups)``."""
-    if cfg.n_experts and cfg.moe_impl == "ep":
-        raise NotImplementedError(EP_DEFERRED)
+    drawn from ``generator`` (default: seed 0 on that device; on ``"meta"``
+    no generator, since nothing is drawn); an MoE model routes its
+    forward's tokens in ``data_groups`` groups, as ``repro``'s
+    ``build_model(cfg, data_groups)``."""
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
-    if generator is None:
+    if device.type == "meta":
+        generator = None            # a meta tensor's init draws nothing
+    elif generator is None:
         generator = torch.Generator(device).manual_seed(0)
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, device, generator, data_groups)

@@ -1,6 +1,6 @@
 """Feed-forward layers: dense (SwiGLU / GELU) and Mixture-of-Experts.
 
-Port of :mod:`repro.models.ffn`.  MoE runs one of two dispatch
+Port of :mod:`repro.models.ffn`.  MoE runs one of three dispatch
 implementations of the same function (``MoEConfig.impl``):
 
 * ``dense``  — every expert computes every token, combined by gate weight.
@@ -8,6 +8,13 @@ implementations of the same function (``MoEConfig.impl``):
 * ``gather`` — the production path: per-data-group stable sort of the
   routed slots into capacity-bounded per-expert buffers ``(G, E, C, D)``,
   batched expert GEMMs, and the slots brought back to their tokens.
+* ``ep`` — expert parallelism over the registered mesh
+  (:data:`repro_torch.launch.shardings.CURRENT_MESH`), ``repro``'s
+  ``_moe_ep``: a :func:`~repro_torch.core.compat.shard_map` whose positions
+  (threads on one device) each route their slice of the tokens, send the
+  capacity-padded buffers to the experts' owners by ``all_to_all`` and take
+  the outputs back the same way; each position's experts are views of the
+  layer's weights, never copies.
 
 Routing: softmax router (fp32 whatever the model's dtype), top-k with
 renormalised gates (DeepSeek-style), capacity factor with token dropping,
@@ -16,8 +23,8 @@ lower expert index and the sort of the slots is stable, as in ``repro``, so
 both packages route and drop the same slots.  Nothing in a layer reads a
 value back to the host, and the gather path moves tokens only by
 permutations and exact writes, so two runs on the card give the same bits,
-its backward pass included.  ``impl="ep"`` (expert parallelism over a mesh)
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 11, deferred item 6).
+its backward pass included; so does ``ep``'s, whose output and input
+gradient come from one position each.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.compat import P, all_gather, all_to_all, axis_index, axis_size, pmean, shard_map
 from repro_torch.models.common import Tree, dense_init, params
 
 
@@ -83,13 +91,9 @@ class MoEConfig(NamedTuple):
     d_ff_expert: int
     n_shared: int = 0            # always-on shared experts (deepseek)
     capacity_factor: float = 1.25
-    impl: str = "gather"         # gather | dense (| ep: not ported)
+    impl: str = "gather"         # gather | dense | ep
     aux_loss_weight: float = 0.01
     data_groups: int = 1         # data-parallel groups for group-local routing
-
-
-EP_DEFERRED = ("moe_impl='ep' (expert parallelism over a mesh) is not ported yet "
-               "(ROADMAP Queue 1 item 11, deferred item 6)")
 
 
 class MoE(Tree):
@@ -231,12 +235,15 @@ def _moe_gather(p, x2d, gates, idx, cfg: MoEConfig):
 
 def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig):
     """x (B, T, D) -> (y, aux_loss)."""
-    if cfg.impl == "ep":
-        raise NotImplementedError(EP_DEFERRED)
-    if cfg.impl not in ("gather", "dense"):
-        raise ValueError(f"unknown moe impl {cfg.impl!r} (gather | dense)")
+    if cfg.impl not in ("gather", "dense", "ep"):
+        raise ValueError(f"unknown moe impl {cfg.impl!r} (gather | dense | ep)")
     B, T, D = x.shape
     x2d = x.reshape(B * T, D)
+    if cfg.impl == "ep":
+        y, aux = _moe_ep(p, x2d, cfg)
+        if cfg.n_shared:
+            y = y + dense_ffn(p["shared"], x2d, kind="swiglu")
+        return y.reshape(B, T, D), aux
     gates, idx, aux = _router(p, x2d, cfg)
     if cfg.impl == "dense":
         y = _moe_dense(p, x2d, gates, idx, cfg)
@@ -245,6 +252,107 @@ def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig):
     if cfg.n_shared:
         y = y + dense_ffn(p["shared"], x2d, kind="swiglu")
     return y.reshape(B, T, D), aux
+
+
+# ---------------------------------------------------------------------------
+# EP dispatch: shard_map all-to-all (DeepSeek-style expert parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _moe_ep_local(p_router, w_gate, w_up, w_down, x_m, cfg: MoEConfig, ep_axis: str):
+    """Per-position body (inside shard_map): x_m (chunk, D) are THIS
+    position's tokens (its model-axis slice); the expert weights are its
+    E_loc experts.  Dispatch = all_to_all of capacity-padded per-expert
+    buffers; the slots move by permutations and exact writes, as in the
+    gather path."""
+    M = axis_size(ep_axis)
+    chunk, D = x_m.shape
+    E = cfg.n_experts
+    E_loc = E // M
+    k = cfg.top_k
+    C = max(1, int(math.ceil(k * chunk / E * cfg.capacity_factor)))
+
+    logits = (x_m.float() @ p_router).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    # --- local capacity-padded buffers, one slot group per GLOBAL expert ----
+    order, eid_s, pos_c, keep = (t[0] for t in _slots(idx, cfg._replace(data_groups=1), C))
+    x_slots = x_m[:, None].expand(chunk, k, D).reshape(chunk * k, D)
+    sent = x_slots.gather(0, order[:, None].expand(-1, D)).masked_fill(~keep[:, None], 0)
+    buf = torch.zeros((E, C, D), dtype=x_m.dtype, device=x_m.device).index_put(
+        (eid_s, pos_c), sent, accumulate=True)
+    del x_slots, sent
+
+    # --- dispatch: (M, E_loc, C, D) all_to_all over the expert axis ----------
+    recv = all_to_all(buf.reshape(M, E_loc, C, D), ep_axis, 0, 0)   # (M, E_loc, C, D)
+    del buf
+
+    # --- expert GEMMs on my E_loc experts (batch dim = source position × C) --
+    te = recv.transpose(0, 1).reshape(E_loc, M * C, D)
+    del recv
+    h = torch.einsum("ecd,edf->ecf", te, w_gate)
+    u = torch.einsum("ecd,edf->ecf", te, w_up)
+    del te
+    out = torch.einsum("ecf,efd->ecd", nn.functional.silu(h) * u, w_down)
+    del h, u
+    out = out.reshape(E_loc, M, C, D).transpose(0, 1)               # (M, E_loc, C, D)
+
+    # --- return trip + combine: each token's k slots by the inverse
+    # permutation, summed --------------------------------------------------
+    back = all_to_all(out, ep_axis, 0, 0).reshape(E, C, D)
+    del out
+    slots = back[eid_s, pos_c].masked_fill(~keep[:, None], 0)
+    slots = slots * gates.reshape(-1)[order][:, None].to(back.dtype)
+    inv = torch.argsort(order)
+    y_m = slots.gather(0, inv[:, None].expand(-1, D)).reshape(chunk, k, D).sum(1)
+
+    # load-balance aux (local estimate; the mean over positions follows)
+    me = probs.mean(0)
+    flat = idx.reshape(-1)
+    ce = torch.zeros(E, device=x_m.device).index_add(
+        0, flat, torch.ones(flat.shape, device=x_m.device)) / (chunk * k)
+    aux = cfg.n_experts * torch.sum(me * ce) * cfg.aux_loss_weight
+    return y_m, aux
+
+
+def _moe_ep(p, x2d: torch.Tensor, cfg: MoEConfig):
+    """Global entry: shard_map over (data, model); tokens data-sharded and
+    model-replicated on entry; each model rank takes its token slice, routes,
+    and exchanges with the expert owners via all_to_all.  Needs the mesh
+    registered by :func:`repro_torch.launch.shardings.set_mesh_axis_sizes`
+    (``build_cell`` and ``train`` register theirs)."""
+    from repro_torch.launch import shardings as sh
+
+    mesh = sh.CURRENT_MESH
+    if mesh is None:
+        raise RuntimeError("moe_impl='ep' needs a mesh (launch.steps.build_cell, or "
+                           "launch.shardings.set_mesh_axis_sizes)")
+    ep_axis = "model"
+    dp = tuple(a for a in mesh.axis_names if a != ep_axis)
+    M = int(mesh.shape[ep_axis])
+    if cfg.n_experts % M:
+        raise ValueError(f"moe_impl='ep': {cfg.n_experts} experts do not split over the "
+                         f"{M} positions of the model axis")
+
+    def body(p_router, w_gate, w_up, w_down, x_loc):
+        m = axis_index(ep_axis)
+        chunk = x_loc.shape[0] // M
+        x_m = x_loc.narrow(0, m * chunk, chunk)
+        y_m, aux = _moe_ep_local(p_router, w_gate, w_up, w_down, x_m, cfg, ep_axis)
+        # republish the full token set on every model rank
+        y_loc = all_gather(y_m, ep_axis, axis=0, tiled=True)
+        aux = pmean(aux, ep_axis)
+        return y_loc, aux[None]
+
+    y, aux = shard_map(
+        body, mesh=mesh,
+        in_specs=(P(), P(ep_axis, None, None), P(ep_axis, None, None),
+                  P(ep_axis, None, None), P(dp, None)),
+        out_specs=(P(dp, None), P(dp)),
+    )(p["router"], p["w_gate"], p["w_up"], p["w_down"], x2d)
+    return y, aux.mean()
 
 
 def routed_experts(p, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

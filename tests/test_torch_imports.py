@@ -58,7 +58,9 @@ def test_port_files_exist():
           "analytics/nmf.py", "core/tiers.py", "utils/__init__.py", "utils/tree.py",
           "ft/__init__.py", "ft/checkpoint.py", "ft/heartbeat.py", "ft/elastic.py",
           "optim/__init__.py", "optim/optimizers.py", "optim/zero.py", "optim/compression.py",
-          "data/pipeline.py", "data/synthetic.py", "launch/train.py", "launch/__init__.py"]
+          "data/pipeline.py", "data/synthetic.py", "launch/train.py", "launch/__init__.py",
+          "launch/mesh.py", "launch/shardings.py", "launch/roofline.py", "launch/dryrun.py",
+          "utils/hlo.py"]
     missing = [f for f in lm if f"src/repro_torch/{f}" not in names]
     assert not missing, missing
     for source in ("flash_attention.cu", "ssd_scan.cu", "accumulate.cu", "scatter_add.cu"):
@@ -100,3 +102,39 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+class _OtherDevice(torch.Tensor):
+    """A tensor that says it lives on a device neither CPU, CUDA nor meta
+    (no storage; any op on it raises)."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a tensor of another device")
+
+
+def test_kernel_wrappers_raise_off_cpu_cuda_and_meta():
+    """E's and F's wrappers take the plain version for a CPU tensor and, for
+    shapes only, a meta one; any other device raises (a CUDA tensor always
+    takes the kernel)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd, flash_attention_gqa
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+
+    o = _OtherDevice
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention_gqa(o(1, 4, 1, 1, 8), o(1, 4, 1, 8), o(1, 4, 1, 8))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention_bhsd(o(2, 4, 8), o(2, 4, 8), o(2, 4, 8))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ssd_scan(o(1, 8, 2, 4), o(1, 8, 2), o(1, 8, 1, 4), o(1, 8, 1, 4), chunk=4)
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    assert flash_attention_gqa(meta(1, 4, 2, 2, 8), meta(1, 6, 2, 8), meta(1, 6, 2, 4)).shape \
+        == (1, 4, 2, 2, 4)
+    assert flash_attention_bhsd(meta(2, 4, 8), meta(2, 4, 8), meta(2, 4, 8)).is_meta
+    assert ssd_scan(meta(1, 8, 2, 4), meta(1, 8, 2), meta(1, 8, 1, 4), meta(1, 8, 1, 4),
+                    chunk=4).shape == (1, 8, 2, 4)

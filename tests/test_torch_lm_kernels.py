@@ -202,8 +202,7 @@ def test_wrapper_validation():
                                torch.zeros(1, 4, 1, 8))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa_ops.flash_attention(torch.zeros(1, 4, 1, 1, 8, device="meta"),
-                               torch.zeros(1, 4, 1, 8, device="meta"),
-                               torch.zeros(1, 4, 1, 8, device="meta"))
+                               torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1, 8))
     xs, dt, A_log, B, C = map(torch.from_numpy, _ssd_inputs(T=24))
     with pytest.raises(ValueError, match="T % chunk"):
         ssd_ops.ssd(xs, dt, A_log, B, C, chunk=16)

@@ -205,14 +205,35 @@ def test_moe_gather_is_differentiable_like_repros():
                                    err_msg=name)
 
 
-def test_moe_ep_is_deferred():
-    cfg = ffn.MoEConfig(d_model=8, n_experts=2, top_k=1, d_ff_expert=8, impl="ep")
-    _, p = _moe(cfg._replace(impl="gather"))
-    with pytest.raises(NotImplementedError, match="deferred item 6"):
-        ffn.moe_ffn(p, torch.ones((1, 4, 8)), cfg)
-    tcfg = configs.smoke_config(configs.get_arch("deepseek-v3-671b")).replace(moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11, deferred item 6"):
-        build_model(tcfg, device="cpu")
+def test_moe_ep_runs():
+    """moe_impl="ep" runs over the registered mesh: the layer against the
+    dense oracle where nothing drops, and a whole deepseek smoke model
+    (MLA + MoE + MTP) whose forward equals its gather path's (4 data groups
+    on a (4, 2) mesh route alike) and whose decode keeps the gather path.
+    repro's EP itself is held against in tests/test_torch_ep.py."""
+    from repro_torch.launch import make_host_mesh, shardings as sh
+    saved = (dict(sh._AXIS_SIZES), sh.CURRENT_MESH)
+    try:
+        sh.set_mesh_axis_sizes(make_host_mesh(data=4, model=2, device="cpu"))
+        cfg = ffn.MoEConfig(d_model=8, n_experts=2, top_k=1, d_ff_expert=8, impl="ep",
+                            capacity_factor=4.0)
+        _, p = _moe(cfg._replace(impl="gather"))
+        x = torch.from_numpy(_x((4, 4, 8)))
+        y, _ = ffn.moe_ffn(p, x, cfg)
+        yd, _ = ffn.moe_ffn(p, x, cfg._replace(impl="dense"))
+        torch.testing.assert_close(y, yd, rtol=1e-5, atol=1e-6)
+        tcfg = configs.smoke_config(configs.get_arch("deepseek-v3-671b")).replace(
+            capacity_factor=8.0)
+        ep = build_model(tcfg.replace(moe_impl="ep"), device="cpu", data_groups=4)
+        gather = build_model(tcfg, device="cpu", data_groups=4)
+        tokens = torch.randint(0, tcfg.vocab, (4, 8), generator=torch.Generator().manual_seed(0))
+        torch.testing.assert_close(ep.forward({"tokens": tokens}),
+                                   gather.forward({"tokens": tokens}), rtol=1e-5, atol=1e-5)
+        sh.CURRENT_MESH = None              # decode routes by the gather path: no mesh
+        logits, _ = ep.decode_step(ep.init_cache(4, 8), tokens[:, :1], 0)
+        assert logits.shape == (4, 1, tcfg.vocab)
+    finally:
+        sh._AXIS_SIZES, sh.CURRENT_MESH = saved
 
 
 # -- MLA ------------------------------------------------------------------------------------

@@ -377,10 +377,21 @@ def test_load_jax_opt_state_shapes_and_kinds():
         load_jax_opt_state(tm, joptim.AdamState(bad, bad))
 
 
-def test_train_on_a_mesh_raises():
-    for kw in (dict(data=2), dict(model_axis=2)):
-        with pytest.raises(NotImplementedError, match="deferred item 6"):
-            train("qwen3-1.7b", steps=1, device="cpu", **kw)
+def test_train_on_a_mesh_runs():
+    """train(data=2) and train(model_axis=2) make a mesh of positions on the
+    one device; a dense model's steps are those of the run without one.
+    moe_impl="ep" on a (2, 2) mesh is held to repro in test_torch_ep.py."""
+    from repro_torch.launch import shardings as sh
+    saved = (dict(sh._AXIS_SIZES), sh.CURRENT_MESH)
+    try:
+        kw = dict(steps=2, batch=4, seq=16, device="cpu")
+        want = train("qwen3-1.7b", **kw)
+        for mesh in (dict(data=2), dict(model_axis=2)):
+            assert train("qwen3-1.7b", **kw, **mesh) == want
+            assert sh.CURRENT_MESH.shape == {"data": mesh.get("data", 1),
+                                             "model": mesh.get("model_axis", 1)}
+    finally:
+        sh._AXIS_SIZES, sh.CURRENT_MESH = saved
 
 
 def test_train_needs_a_gpu_by_default(monkeypatch):
