@@ -130,7 +130,9 @@ Phases, in order; any failure raises and the run exits non-zero:
 7. lm      — qwen3-1.7b (flash attention), mamba2-2.7b (SSD scan) and
              zamba2-2.7b (both: 54 mamba layers, a weight-shared attention
              block after every 6) at their full published configs, random
-             weights from a fixed generator, device left at its default: (a)
+             weights and inputs from SEED (the same on any device), device
+             left at its default; every rate is tokens over run_app's wall,
+             after its collection and synchronize: (a)
              make_prefill_step on 4 x 2048 tokens, which must launch each
              kernel as LM_MODELS says (once a layer; zamba2 flash_attention
              9, ssd_scan 54); (b) forward on a 256-token prompt against 256
@@ -151,9 +153,22 @@ Phases, in order; any failure raises and the run exits non-zero:
              are compared and the kernel forward is printed against the
              blocked one; (c) serves them under smoke_config (neither whole
              config fits one card).
-             Then qwen3-1.7b and moonshot-v1-16b-a3b (all 48 layers) in
-             bf16: one 4 x 2048 prefill each, the flash kernel's bf16 body
-             once per layer.  The vlm: llama-3.2-vision-90b in fp32 cut to 3
+             Then repro's serving policy, bf16 parameters and compute
+             (BF16_RUNS): qwen3-1.7b, mamba2-2.7b and zamba2-2.7b whole,
+             moonshot-v1-16b-a3b whole (48 layers, the router fp32),
+             deepseek-v3-671b at 4 of 61 layers and the vlm at 7 of 20
+             superblocks (after its fp32 run below): the build timed; a
+             4 x 2048 prefill for qwen3, moonshot and the vlm (E's bf16
+             body once a layer); the kernels' forward on 256 tokens (E in
+             bf16, F in bf16) against 256 bf16 decode steps, timed in four
+             64-step blocks with their peak memory, within BF16_DECODE_GAP
+             of max |logit|, each argmax flip printed with its top-2
+             margin; where fp32 fits (not moonshot whole, nor the vlm),
+             the fp32 decode of the same bf16 weights beside it (error rms
+             over the logits' rms within BF16_VS_F32_RMS, max within
+             BF16_DECODE_GAP but for the moe family's routing flips); then
+             serve(smoke=False) at the same cut in bf16.  The
+             vlm: llama-3.2-vision-90b in fp32 cut to 3
              of its 20 superblocks (each 4 self blocks and a cross block,
              every width as published): (a) a 4 x 2048 prefill over 1,601
              random vision embeddings of width 7,680, E x 15 (12 self, 3
@@ -170,18 +185,29 @@ Phases, in order; any failure raises and the run exits non-zero:
              quantizer's on the K/V rows the steps quantized; the int8 and
              the unquantized decode timed in four 64-step blocks and their
              gap printed; at smoke size (qwen2-72b) the int8 decode within
-             0.15 of the unquantized one at every step.
-8. train   — training on the card (device left at its default): (a)
+             0.15 of the unquantized one at every step.  Last, long_500k:
+             build_cell(cfg in bf16, SHAPES["long_500k"], make_host_mesh(1,
+             1)) for mamba2-2.7b and zamba2-2.7b (its 9 KV caches 48.3 GB):
+             a warm-up step, then one decode step against the 524,288-deep
+             cache, its wall and peak memory printed, finite logits;
+             mamba2's step from drawn states against the CPU's from the
+             same state and weights, zamba2's caches each written at the
+             step's slot and nowhere else (run_long_500k).
+8. train   — training on the card (device left at its default); first
+             the full-width weight draw of qwen3-1.7b and zamba2-2.7b
+             timed beside the pre-seed draw of the same leaves: (a)
              train() on qwen3-1.7b at its full config (2.03 B parameters,
              fp32, AdamW + warmup_cosine + clip 1.0, LMDataPipeline), 8
-             steps of 8 x 128 tokens: finite losses, the last below the
-             first, no flash_attention launch (blocked attention, as repro
+             steps of 8 x 128 tokens: finite losses, the trained weights'
+             loss on the first step's batch below that step's logged loss,
+             no flash_attention launch (blocked attention, as repro
              trains); each step's seconds, the median tokens/s of steps 2-7
              and the peak device memory printed; then a backward through
              the flash kernel (smoke_config, attention_impl="pallas") must
-             raise NotImplementedError; (b) smoke_config, 10 steps on the
-             card against the same 10 on the CPU from the same weights
-             (losses within 1e-4 relative), and train() stopped by a
+             raise NotImplementedError; (b) train() on smoke_config from
+             SEED, 10 steps on the card against the same 10 on the CPU, each
+             drawing its own weights (losses within 1e-4 relative), and
+             train() stopped by a
              checkpoint under build/ at step 6 and resumed, against its
              uninterrupted run (within 1e-5; whether bit-equal is printed);
              (c) mamba2-2.7b at full width cut to 16 of its 64 layers, 4
@@ -230,10 +256,10 @@ Phases, in order; any failure raises and the run exits non-zero:
              against the gather path within 1e-4 of max |logit| (argmax
              flips counted with their near ties), the expert loads against
              C, and EP twice bit-equal; (c) moonshot's smoke_config with
-             moe_impl="ep" on a (2, 2) mesh: 10 train steps on the card
-             against the same on the CPU from the same weights (within 1e-4
-             relative), train(data=2, model_axis=2) on the card, and one
-             backward through an EP layer with finite, nonzero gradients;
+             moe_impl="ep": train(data=2, model_axis=2) from SEED, 10 steps
+             on the card against the same on the CPU (within 1e-4
+             relative), and one backward through an EP layer with finite,
+             nonzero gradients;
              (d) the dry run of deepseek-v3-671b's prefill_32k cell on meta
              over the 256-position production mesh (dryrun.run_cell), its
              RooflineRecord on the H100's constants and its wall time
@@ -247,6 +273,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import importlib.util
 import io
 import json
@@ -272,7 +299,7 @@ from repro_torch.core import (  # noqa: E402
     HostBackend, Session, SpmdBackend, make_mesh, pack_spec, pack_tree, telemetry)
 from repro_torch.core.compat import (  # noqa: E402
     P, axis_index, axis_size, record_collectives, run_positions, shard_map)
-from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.core.shards import ShardedStore  # noqa: E402
 from repro_torch.core.tiers import DiskTier, HostMemTier  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify, densify  # noqa: E402
@@ -304,9 +331,10 @@ from repro_torch.launch import dryrun, make_host_mesh, shardings  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import build_cell, make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.launch.train import batch_for, train  # noqa: E402
-from repro_torch.models import attention, build_model  # noqa: E402
-from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models import attention, build_model, common  # noqa: E402
+from repro_torch.models.common import InitStream, rms_norm  # noqa: E402
 from repro_torch.models.ffn import MoE, capacity, expert_loads, routed_experts  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw, compressed_accumulate, compression_ratio, ef_init, warmup_cosine, zero1_gather_params,
     zero1_init, zero1_update)
@@ -380,17 +408,61 @@ LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28
                                      {"flash_attention": 24}),
              "deepseek-v3-671b": ({"attention_impl": "pallas", "n_layers": 4},
                                   {"flash_attention": 4})}
-# one bf16 prefill each, whole: qwen3-1.7b, and moonshot-v1-16b-a3b's 48
-# layers (56.8 GB of bf16 weights, the router fp32)
-LM_BF16 = ("qwen3-1.7b", "moonshot-v1-16b-a3b")
+# repro's serving policy, bf16 parameters and compute (run_lm_bf16): each
+# arch's cut, the kernels' launches in one forward, whether it also runs a
+# 4 x 2048 prefill and whether its fp32 build fits beside nothing else for
+# the fp32 decode of the same weights: qwen3-1.7b (4.06 GB), mamba2-2.7b
+# (5.66 GB) and zamba2-2.7b (4.85 GB) whole; moonshot-v1-16b-a3b whole
+# (56.8 GB, the router fp32: 113.5 GB in fp32); deepseek-v3-671b at 4 of 61
+# layers (31.6 GB; the absorbed MLA decode); llama-3.2-vision-90b at 7 of 20
+# superblocks (64.2 GB), its cross caches filled as run_vlm fills them
+BF16_RUNS = {
+    "qwen3-1.7b": ({"attention_impl": "pallas"},
+                   {"flash_attention_bf16": 28, "flash_attention": 28}, True, True),
+    "mamba2-2.7b": ({"ssd_impl": "pallas"}, {"ssd_scan": 64}, False, True),
+    "zamba2-2.7b": ({"attention_impl": "pallas", "ssd_impl": "pallas"},
+                    {"flash_attention_bf16": 9, "flash_attention": 9, "ssd_scan": 54},
+                    False, True),
+    "moonshot-v1-16b-a3b": ({"attention_impl": "pallas"},
+                            {"flash_attention_bf16": 48, "flash_attention": 48}, True, False),
+    "deepseek-v3-671b": ({"attention_impl": "pallas", "n_layers": 4},
+                         {"flash_attention_bf16": 4, "flash_attention": 4}, False, True),
+    "llama-3.2-vision-90b": ({"attention_impl": "pallas", "n_layers": 35},
+                             {"flash_attention_bf16": 35, "flash_attention": 35}, True, False),
+}
+# bf16 limits, each of the step's logits: the forward against the decode,
+# and the decode against the fp32 decode of the same weights (max |dlogit|
+# over max |logit|), from tests/test_torch_bf16_decode.py (zamba2 3.75e-2
+# against repro's bf16, the most of five families); the error's rms over
+# the logits' rms against the fp32 decode (1.84e-2 at most at smoke size)
+BF16_DECODE_GAP, BF16_VS_F32_RMS = 6e-2, 6e-2
+# the ssm and hybrid stacks at full depth: bf16's rounding grows layer by
+# layer through their random weights (the fp32 gap too: mamba2 1.3e-5 at 2
+# layers, 5.6e-4 at 64), so a whole model's bf16 forward and decode, and
+# its bf16 and fp32 decodes, part as far as rounding apart lets them
+# (mamba2 0.94 of max |logit| on the card; scripts/torch_bf16_depth.py on
+# the CPU at full width: 3.2e-2 at 2 layers, 9.0e-2 at 4, 2.2e-1 at 16):
+# printed whole, gated at a cut of (layers, the kernels' launches a
+# forward) by the error's rms over the logits' rms, within BF16_VS_F32_RMS
+# for the forward against the decode and for the decode against fp32's
+# (max |dlogit|, an extreme over 1,024 positions, printed: zamba2's one
+# superblock 7.6e-2 at batch 1 on the CPU, 1.6e-1 at batch 4 on the card;
+# its rms 4.0e-2 and 3.9e-2)
+BF16_DEEP = {"mamba2-2.7b": (2, {"ssd_scan": 2}),
+             "zamba2-2.7b": (6, {"flash_attention_bf16": 1, "flash_attention": 1,
+                                 "ssd_scan": 6})}
 # (b) for the moe family: the forward drops slots past C batch-wide, while
 # decode routes one step at a time (so tests/test_archs_smoke.py raises the
 # capacity too, to 8.0); the forward's capacity factor is one at which no
 # expert of the 4 x 256 forward passes C (checked on each MoE layer's
 # input, recorded by a forward hook): 8.0, but deepseek's random weights
-# send 409 of its 8,192 slots to one expert (12.8 x the mean of 32; C 256
+# send 441 of its 8,192 slots to one expert (13.8 x the mean of 32; C 256
 # at 8.0), so 16.0 there (C 512); at E / k the decode step's C is its batch
 MOE_FORWARD_CAPACITY = {"moonshot-v1-16b-a3b": 8.0, "deepseek-v3-671b": 16.0}
+# a routing difference between the forward and the decode steps must be a
+# near tie: the router's k + 1 largest probabilities this close somewhere
+# (the two paths' inputs to a layer differ by fp32 rounding, ~1e-6)
+ROUTING_TIE = 1e-4
 LM_BATCH, LM_PREFILL, LM_CONSISTENCY, DECODE_BLOCK = 4, 2048, 256, 64
 VLM_VISION_TOKENS = get_arch("llama-3.2-vision-90b").vision_tokens        # 1,601
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}   # test_kernels.py:13
@@ -2386,15 +2458,17 @@ def teacher_forced(model, cache, tokens) -> tuple:
     return torch.stack(steps, dim=1), rates
 
 
-def lm_inputs(cfg, gen: torch.Generator, t: int) -> dict:
+def lm_inputs(cfg, t: int) -> dict:
     """A prefill batch of ``cfg``'s family, B x ``t``, drawn on the card from
-    ``gen``: random tokens, and the vlm's random vision embeddings (the
-    vision frontend is a stub: ``vision_tokens`` x ``vision_dim``)."""
-    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, t), generator=gen,
-                                     device="cuda", dtype=torch.int32)}
+    SEED (an InitStream: the same values on any device): random tokens, and
+    the vlm's random vision embeddings (the vision frontend is a stub:
+    ``vision_tokens`` x ``vision_dim``)."""
+    inputs = InitStream(SEED)
+    batch = {"tokens": inputs.draw((LM_BATCH, t), kind="integers", high=cfg.vocab,
+                                   dtype=torch.int32, device="cuda")}
     if cfg.family == "vlm":
-        batch["vision_embeds"] = torch.randn((LM_BATCH, cfg.vision_tokens, cfg.vision_dim),
-                                             generator=gen, device="cuda")
+        batch["vision_embeds"] = inputs.draw((LM_BATCH, cfg.vision_tokens, cfg.vision_dim),
+                                             device="cuda")
     return batch
 
 
@@ -2403,33 +2477,167 @@ def prompt_of(batch: dict) -> dict:
     return dict(batch, tokens=batch["tokens"][:, :LM_CONSISTENCY])
 
 
-def run_lm_bf16_prefill(arch: str, counts: dict, **cut) -> None:
-    """``arch`` at its full config (or cut by ``cut``, e.g. ``n_layers``) in
-    bf16, prefill 4 x 2048: the flash kernel's bf16 body once per layer;
-    the logits finite, of the full shape."""
-    cfg = get_arch(arch).replace(attention_impl="pallas", dtype="bfloat16", **cut)
-    gen = torch.Generator("cuda").manual_seed(SEED)
-    model = build_model(cfg, generator=gen)
+def flips_with_margins(label: str, ref, other) -> int:
+    """Print each position where ``other``'s argmax is not ``ref``'s, with
+    ``ref``'s top-2 margin there (a flip at a margin within the gap is a near
+    tie of random weights, not a wrong token); returns the count."""
+    ref, other = ref.float(), other.float()
+    top = ref.topk(2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    where = (ref.argmax(-1) != other.argmax(-1)).nonzero().tolist()
+    shown = [f"(b {b}, t {t}): margin {float(margin[b, t]):.3e}" for b, t in where[:16]]
+    log(f"{label}: argmax differs at {len(where)} of {ref.shape[0] * ref.shape[1]} positions"
+        f"{'; ' + ', '.join(shown) if shown else ''}; smallest top-2 margin anywhere "
+        f"{float(margin.min()):.3e}")
+    return len(where)
+
+
+def leaf_sums(model, dtypes: dict = None) -> dict:
+    """Each parameter's dtype (``dtypes[name]``, else its own) and the
+    integer sum of its values' bits in that dtype: equal for equal values in
+    any order of summation.  In pieces of 2^26 values (deepseek's expert
+    stacks hold 3.76 G values)."""
+    out = {}
+    for n, p in model.named_parameters():
+        dt = (dtypes or {}).get(n, p.dtype)
+        bits = torch.int16 if dt == BF16 else torch.int32
+        out[n] = (dt, sum(int(q.to(dt).view(bits).sum(dtype=torch.int64))
+                          for q in p.detach().reshape(-1).split(1 << 26)))
+    return out
+
+
+def bf16_vs_f32(arch: str, cfg, sums: dict, moe, stepped, tokens, limit, rms_limit) -> None:
+    """The bf16 decode's logits ``stepped`` against the fp32 decode of the
+    same bf16-representable weights: the fp32 build from SEED rounded to
+    bf16 in place, in pieces, where the bf16 build held bf16 (the router
+    stays fp32), each leaf's bits checked equal to the bf16 build's by their
+    sum (``sums``, ``leaf_sums``); the moe family decodes at the bf16 run's
+    ``moe`` config.  The rms of the error over the fp32 logits' rms within
+    ``rms_limit`` and max |error| over max |logit| within ``limit`` (each
+    printed only where ``None``; the max printed only for the moe family:
+    a routing flip between the two is a discrete change)."""
+    f32 = build_model(cfg.replace(dtype="float32"), generator=SEED)
+    if moe is not None:
+        f32.moe_cfg = moe
+    with torch.no_grad():
+        for n, p in f32.named_parameters():
+            if sums[n][0] == BF16:
+                for q in p.view(-1).split(1 << 26):
+                    q.copy_(q.to(BF16))
+    if leaf_sums(f32, {n: dt for n, (dt, _) in sums.items()}) != sums:
+        raise AssertionError(f"{arch}: the fp32 build rounded to bf16 is not the bf16 build")
+    (ref, rates), _ = run_app(f"lm {arch} fp32 decode of the bf16 weights {LM_CONSISTENCY} "
+                              "steps", {}, lambda: teacher_forced(f32, f32.init_cache(
+                                  LM_BATCH, LM_CONSISTENCY), tokens))
+    del f32
+    err = stepped.float() - ref
+    rms = float(err.square().mean().sqrt() / ref.square().mean().sqrt())
+    worst = float(err.abs().max() / ref.abs().max())
+    log(f"lm {arch} bf16 decode vs the fp32 decode of its weights over {LM_CONSISTENCY} "
+        f"teacher-forced steps: error rms / logit rms {rms:.4e} (limit {rms_limit}), max "
+        f"|error| / max |logit| {worst:.4e} (limit {None if moe is not None else limit}; None: "
+        f"printed only); the fp32 decode {[round(r, 1) for r in rates]} tokens/s")
+    flips_with_margins(f"lm {arch} bf16 against fp32 decode", ref, stepped)
+    if (rms_limit is not None and not rms <= rms_limit) or (
+            moe is None and limit is not None and not worst <= limit):
+        raise AssertionError(f"{arch}: the bf16 decode is off the fp32 decode of its weights")
+    del ref, err
+    torch.cuda.empty_cache()
+
+
+def run_lm_bf16(arch: str, counts: dict, *, n_layers: int = None, limit=BF16_DECODE_GAP,
+                rms_limit=None, kernels: dict = None, serving: bool = True) -> None:
+    """``repro``'s serving policy (bf16 parameters and compute,
+    ``repro/launch/dryrun.py:125``) on ``arch`` at BF16_RUNS' cut (or
+    ``n_layers``): built from SEED (the draw timed); where the run says so a
+    4 x 2048 prefill; the kernels' forward on 256 tokens against 256 decode
+    steps (four 64-step blocks timed, the peak memory of the decode
+    printed), max |dlogit| within ``limit`` of max |logit| and the error's
+    rms within ``rms_limit`` of the logits' (``None``: printed only), each
+    argmax flip printed with its top-2 margin; the vlm's cross caches
+    filled as run_vlm fills them; the moe family's forward at
+    MOE_FORWARD_CAPACITY, its decode at E / k; where fp32 fits on the card,
+    the decode against the fp32 decode of the same weights
+    (``bf16_vs_f32``); then, with ``serving``, ``serve(smoke=False)`` at
+    the same cut in bf16."""
+    overrides, run_kernels, prefill, f32_check = BF16_RUNS[arch]
+    overrides = dict(overrides, **({"n_layers": n_layers} if n_layers else {}))
+    kernels = kernels or run_kernels
+    cfg = get_arch(arch).replace(dtype="bfloat16", **overrides)
+    t0 = time.perf_counter()
+    model = build_model(cfg, generator=SEED)
+    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"lm {arch} bf16: {n_params} parameters "
         f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB), "
-        f"{cfg.n_layers} of {get_arch(arch).n_layers} layers")
-    prefill = make_prefill_step(model)
-    batch = lm_inputs(cfg, gen, LM_PREFILL)
-    prefill(prompt_of(batch))                            # warm-up, not counted
-    t0 = time.perf_counter()
-    logits, launched = run_app(f"lm {arch} bf16 prefill {LM_BATCH}x{LM_PREFILL}", counts,
-                               lambda: prefill(batch))
-    log(f"lm {arch} bf16 prefill: "
-        f"{LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s")
-    expect_launches(f"{arch} bf16 prefill", launched,
-                    {"flash_attention_bf16": cfg.n_layers, "flash_attention": cfg.n_layers})
-    if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
-            torch.isfinite(logits.float()).all()):
-        raise AssertionError(f"{arch} bf16 prefill: logits not finite or of the wrong shape")
-    log(f"lm {arch} bf16 prefill: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    del model, prefill, logits, batch
+        f"{cfg.n_layers} of {get_arch(arch).n_layers} layers, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = make_prefill_step(model)
+    batch = lm_inputs(cfg, LM_PREFILL)
+    prompt = prompt_of(batch)
+    step(prompt)                                         # warm-up, not counted
+    if prefill and n_layers is None:
+        label = f"lm {arch} bf16 prefill {LM_BATCH}x{LM_PREFILL}"
+        logits, launched = run_app(label, counts, lambda: step(batch))
+        log(f"lm {arch} bf16 prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by "
+            f"run_app's wall; peak device memory {PEAKS[label]:.3f} GiB")
+        expect_launches(f"{arch} bf16 prefill", launched, kernels)
+        if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{arch} bf16 prefill: logits not finite or of the wrong shape")
+        del logits
+    moe = getattr(model, "moe_cfg", None)
+    if moe is not None:
+        model.moe_cfg = moe._replace(capacity_factor=MOE_FORWARD_CAPACITY[arch])
+    full, launched = run_app(f"lm {arch} bf16 forward {LM_BATCH}x{LM_CONSISTENCY}, "
+                             f"{cfg.n_layers} layers", counts, lambda: step(prompt))
+    expect_launches(f"{arch} bf16 forward", launched, kernels)
+    if moe is not None:
+        model.moe_cfg = moe._replace(capacity_factor=moe.n_experts / moe.top_k)
+    cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
+    if cfg.family == "vlm":
+        fill_cross_caches(model, cache, batch["vision_embeds"])
+    label = f"lm {arch} bf16 decode {LM_CONSISTENCY} steps, {cfg.n_layers} layers"
+    (stepped, rates), _ = run_app(label, counts,
+                                  lambda: teacher_forced(model, cache, prompt["tokens"]))
+    log(f"lm {arch} bf16 decode, {cfg.n_layers} layers, batch {LM_BATCH}, tokens/s per "
+        f"{DECODE_BLOCK}-step block: {[round(r, 1) for r in rates]} (median "
+        f"{statistics.median(rates):.1f}); peak device memory {PEAKS[label]:.3f} GiB")
+    if stepped.dtype != BF16 or not bool(torch.isfinite(stepped.float()).all()) or not bool(
+            torch.isfinite(full.float()).all()):
+        raise AssertionError(f"{arch} bf16: logits {stepped.dtype} or not finite")
+    delta = float((full.float() - stepped.float()).abs().max())
+    scale = float(full.float().abs().max())
+    rms = float((full.float() - stepped.float()).square().mean().sqrt()
+                / full.float().square().mean().sqrt())
+    log(f"lm {arch} bf16 forward vs {LM_CONSISTENCY} decode steps, {cfg.n_layers} layers: max "
+        f"|dlogit| {delta:.3e}, max |logit| {scale:.3e}, ratio {delta / scale:.3e} (limit "
+        f"{limit}), rms ratio {rms:.3e} (limit {rms_limit}; None: printed only)")
+    flips_with_margins(f"lm {arch} bf16 forward against decode", full, stepped)
+    if (limit is not None and not delta <= limit * scale) or (
+            rms_limit is not None and not rms <= rms_limit):
+        raise AssertionError(f"{arch}: the bf16 forward and decode disagree")
+    sums = leaf_sums(model) if f32_check else None
+    moe = getattr(model, "moe_cfg", None)
+    del full, cache, step, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if f32_check:
+        bf16_vs_f32(arch, cfg, sums, moe, stepped, prompt["tokens"], limit,
+                    BF16_VS_F32_RMS if limit is not None else rms_limit)
+    del stepped, prompt
+    torch.cuda.empty_cache()
+    if not serving:
+        return
+
+    # the serving loop itself in bf16: serve() takes repro's signature (no
+    # dtype), so the arch's config carries it, at the same cut
+    with arch_cut(arch, dtype="bfloat16", **overrides):
+        toks, _ = run_app(f"lm {arch} bf16 serve", counts,
+                          lambda: serve(arch, smoke=False, batch=LM_BATCH, prompt_len=32,
+                                        gen=32, seed=SEED))
+    if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{arch} bf16 serve: tokens {toks.shape} out of range")
     torch.cuda.empty_cache()
 
 
@@ -2455,17 +2663,24 @@ def no_expert_over_capacity(label: str, calls: list) -> None:
         f"{max(load for load, _ in worst)} / {worst[0][1]}: no slot dropped")
 
 
-def routing_differences(forward_calls: list, decode_calls: list) -> int:
-    """The (token, MoE layer) pairs whose routed experts differ between the
-    forward's calls (one a layer, B x T tokens) and the decode steps' (one
-    a layer a step, B tokens): a near tie that the two paths' rounding
-    breaks apart."""
+def routing_differences(forward_calls: list, decode_calls: list) -> list:
+    """``(row, step, layer, margin)`` for each (token, MoE layer) whose
+    routed experts differ between the forward's calls (one a layer, B x T
+    tokens) and the decode steps' (one a layer a step, B tokens): a near
+    tie that the two paths' rounding breaks apart, ``margin`` being the
+    least gap between neighbours among the forward router's k + 1 largest
+    probabilities at that token."""
     n_moe = len(forward_calls)
     want = [routed_experts(*c).reshape(LM_BATCH, LM_CONSISTENCY, -1) for c in forward_calls]
-    differ = 0
+    differ = []
     for j, call in enumerate(decode_calls):
         step, layer = divmod(j, n_moe)
-        differ += int((routed_experts(*call) != want[layer][:, step]).any(-1).sum())
+        for row in (routed_experts(*call) != want[layer][:, step]).any(-1).nonzero().flatten():
+            mod, x, cfg = forward_calls[layer]
+            with torch.no_grad():
+                top = torch.softmax(x[int(row), step].float() @ mod["router"], -1).topk(
+                    cfg.top_k + 1).values
+            differ.append((int(row), step, layer, float((top[:-1] - top[1:]).min())))
     return differ
 
 
@@ -2477,25 +2692,22 @@ def run_lm(shapes: dict) -> dict:
     counts: dict = {}
     for arch, (overrides, kernels) in LM_MODELS.items():
         cfg = get_arch(arch).replace(**overrides)
-        gen = torch.Generator("cuda").manual_seed(SEED)
         t0 = time.perf_counter()
-        model = build_model(cfg, generator=gen)
+        model = build_model(cfg, generator=SEED)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         log(f"lm {arch}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32), "
             f"{cfg.n_layers} of {get_arch(arch).n_layers} layers, built in "
             f"{time.perf_counter() - t0:.2f} s")
         prefill = make_prefill_step(model)
-        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PREFILL), generator=gen,
-                               device="cuda", dtype=torch.int32)
+        tokens = lm_inputs(cfg, LM_PREFILL)["tokens"]
         prefill({"tokens": tokens[:, :LM_CONSISTENCY]})      # warm-up, not counted
 
         # (a) prefill at B x T
-        t0 = time.perf_counter()
-        logits, launched = run_app(f"lm {arch} prefill {LM_BATCH}x{LM_PREFILL}", counts,
-                                   lambda: prefill({"tokens": tokens}))
-        log(f"lm {arch} prefill: {LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} "
-            "tokens/s")
+        label = f"lm {arch} prefill {LM_BATCH}x{LM_PREFILL}"
+        logits, launched = run_app(label, counts, lambda: prefill({"tokens": tokens}))
+        log(f"lm {arch} prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by "
+            "run_app's wall")
         expect_launches(f"{arch} prefill", launched, kernels)
         if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -2527,17 +2739,36 @@ def run_lm(shapes: dict) -> dict:
                 f"C {c_decode} at batch {LM_BATCH}: no slot can drop")
         cache = model.init_cache(LM_BATCH, LM_CONSISTENCY)
         stepped, rates = teacher_forced(model, cache, prompt)
+        before_flip = None
         if moe is not None:
             for h in hooks:
                 h.remove()
+            flips = routing_differences(forward_calls, decode_calls)
             log(f"lm {arch}: routed experts differ between the forward and the decode steps "
-                f"at {routing_differences(forward_calls, decode_calls)} of "
-                f"{len(decode_calls) * LM_BATCH} (token, MoE layer) pairs")
+                f"at {len(flips)} of {len(decode_calls) * LM_BATCH} (token, MoE layer) pairs"
+                + "".join(f"; row {b} step {t} layer {layer}: the router's least top-"
+                          f"{moe.top_k + 1} gap {m:.3e}" for b, t, layer, m in flips[:8])
+                + f" (each must be a near tie, within {ROUTING_TIE})")
+            if any(m > ROUTING_TIE for *_, m in flips):
+                raise AssertionError(f"{arch}: a routing difference that is no near tie")
+            # a flipped route changes that token's output, which later
+            # positions of its row attend to: the gate holds the positions
+            # before each row's first flip
+            before_flip = torch.ones(LM_BATCH, LM_CONSISTENCY, dtype=torch.bool,
+                                     device=full.device)
+            for b, t, _, _ in flips:
+                before_flip[b, t:] = False
             del forward_calls, decode_calls
         log(f"lm {arch} decode, batch {LM_BATCH}, tokens/s per {DECODE_BLOCK}-step block: "
             f"{[round(r, 1) for r in rates]} (median {statistics.median(rates):.1f}); peak "
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         delta, scale, same = logit_gap(f"{arch} prefill", full, stepped)
+        if before_flip is not None and not bool(before_flip.all()):
+            if not bool(before_flip.any()):
+                raise AssertionError(f"{arch}: every row's routes differ from its first step")
+            delta, scale, same = logit_gap(
+                f"{arch} prefill, the {int(before_flip.sum())} positions before each row's "
+                "first routing difference", full[before_flip], stepped[before_flip])
         if not delta <= 1e-3 * scale or not same:
             raise AssertionError(f"{arch}: prefill and decode disagree")
         if "ssd_scan" in kernels:
@@ -2582,12 +2813,20 @@ def run_lm(shapes: dict) -> dict:
         if toks.shape != (LM_BATCH, 32) or toks.min() < 0 or toks.max() >= vocab:
             raise AssertionError(f"{arch} serve: tokens {toks.shape} out of range")
         torch.cuda.empty_cache()
-    for arch in LM_BF16:
-        run_lm_bf16_prefill(arch, counts)
-    run_vlm(counts)
-    run_lm_bf16_prefill(VLM, counts, n_layers=VLM_SUPER_BF16 * VLM_PERIOD)
+    for arch in BF16_RUNS:
+        if arch == VLM:
+            run_vlm(counts)
+        if arch in BF16_DEEP:
+            # whole: printed; gated by the rms at the depth cut
+            n_layers, kernels = BF16_DEEP[arch]
+            run_lm_bf16(arch, counts, limit=None, rms_limit=None)
+            run_lm_bf16(arch, counts, n_layers=n_layers, limit=None,
+                        rms_limit=BF16_VS_F32_RMS, kernels=kernels, serving=False)
+        else:
+            run_lm_bf16(arch, counts)
     run_hubert(counts, shapes)
     run_int8_decode(counts)
+    run_long_500k(counts)
     return counts
 
 
@@ -2599,7 +2838,7 @@ def run_lm(shapes: dict) -> dict:
 # hubert-xlarge runs whole (945,574,400)
 VLM, AUDIO = "llama-3.2-vision-90b", "hubert-xlarge"
 VLM_PERIOD = get_arch(VLM).cross_attn_period
-VLM_SUPER_F32, VLM_SUPER_BF16 = 3, 7
+VLM_SUPER_F32 = 3
 INT8_ARCH = "qwen3-1.7b"
 INT8_SMOKE_ARCH, INT8_SMOKE_STEPS, INT8_SMOKE_GAP = "qwen2-72b", 12, 0.15  # test_archs_smoke.py:82
 
@@ -2641,25 +2880,23 @@ def run_vlm(counts: dict) -> None:
     cross caches ``init_cache`` makes, as ``repro`` serves it."""
     whole = get_arch(VLM)
     cfg = whole.replace(attention_impl="pallas", n_layers=VLM_SUPER_F32 * VLM_PERIOD)
-    gen = torch.Generator("cuda").manual_seed(SEED)
     t0 = time.perf_counter()
-    model = build_model(cfg, generator=gen)
+    model = build_model(cfg, generator=SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"lm {VLM}: {n_params} parameters ({n_params * 4 / 2**30:.2f} GiB fp32), "
         f"{VLM_SUPER_F32} of {whole.n_layers // VLM_PERIOD} superblocks ({cfg.n_layers} of "
         f"{whole.n_layers} layers), built in {time.perf_counter() - t0:.2f} s")
     prefill = make_prefill_step(model)
-    batch = lm_inputs(cfg, gen, LM_PREFILL)
+    batch = lm_inputs(cfg, LM_PREFILL)
     prompt = prompt_of(batch)
     prefill(prompt)                                      # warm-up, not counted
     kernels = {"flash_attention": cfg.n_layers}          # 4 self + 1 cross a superblock
 
-    t0 = time.perf_counter()
-    logits, launched = run_app(f"lm {VLM} prefill {LM_BATCH}x{LM_PREFILL}", counts,
-                               lambda: prefill(batch))
-    log(f"lm {VLM} prefill: {LM_BATCH * LM_PREFILL / (time.perf_counter() - t0):.1f} tokens/s; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    label = f"lm {VLM} prefill {LM_BATCH}x{LM_PREFILL}"
+    logits, launched = run_app(label, counts, lambda: prefill(batch))
+    log(f"lm {VLM} prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by run_app's "
+        f"wall; peak device memory {PEAKS[label]:.3f} GiB")
     expect_launches(f"{VLM} prefill", launched, kernels)
     if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
@@ -2708,23 +2945,21 @@ def run_hubert(counts: dict, shapes: dict) -> None:
     kernel's logits on the first 256 frames against blocked attention's on
     the same weights, within 1e-3 of max |logit|."""
     cfg = get_arch(AUDIO).replace(attention_impl="pallas")
-    gen = torch.Generator("cuda").manual_seed(SEED)
-    model = build_model(cfg, generator=gen)
+    model = build_model(cfg, generator=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"lm {AUDIO}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32), whole")
     prefill = make_prefill_step(model)
-    frames = torch.randn((LM_BATCH, LM_PREFILL, cfg.frame_dim), generator=gen, device="cuda")
+    frames = InitStream(SEED).draw((LM_BATCH, LM_PREFILL, cfg.frame_dim), device="cuda")
     prefill({"frames": frames[:, :LM_CONSISTENCY]})      # warm-up, not counted
     label = f"lm {AUDIO} encode {LM_BATCH}x{LM_PREFILL}"
-    t0 = time.perf_counter()
     logits, launched = run_app(label, counts, lambda: prefill({"frames": frames}))
-    rate = LM_BATCH * LM_PREFILL / (time.perf_counter() - t0)
+    rate = LM_BATCH * LM_PREFILL / WALLS[label]
     expect_launches(f"{AUDIO} encode", launched, {"flash_attention": cfg.n_layers})
     if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"{AUDIO} encode: logits not finite or of the wrong shape")
     e_ms = shapes[f"flash_attention@{AUDIO}"]["ms"]
-    log(f"lm {AUDIO} encode: {rate:.1f} frames/s; peak device memory "
+    log(f"lm {AUDIO} encode: {rate:.1f} frames/s by run_app's wall; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; E's share {cfg.n_layers} x "
         f"{e_ms:.4f} ms / {WALLS[label] * 1e3:.1f} ms = "
         f"{cfg.n_layers * e_ms / (WALLS[label] * 1e3):.1%}")
@@ -2753,10 +2988,8 @@ def run_int8_decode(counts: dict) -> None:
     last, at smoke size, the int8 decode within 0.15 of the unquantized one
     at every step (``repro``'s own limit)."""
     cfg = get_arch(INT8_ARCH).replace(kv_cache_dtype="int8")
-    gen = torch.Generator("cuda").manual_seed(SEED)
-    model = build_model(cfg, generator=gen)
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_CONSISTENCY), generator=gen,
-                           device="cuda", dtype=torch.int32)
+    model = build_model(cfg, generator=SEED)
+    tokens = lm_inputs(cfg, LM_CONSISTENCY)["tokens"]
     rows, quantize = [], attention._quantize_i8
 
     def recording(x):
@@ -2807,11 +3040,10 @@ def run_int8_decode(counts: dict) -> None:
     torch.cuda.empty_cache()
 
     scfg = smoke_config(get_arch(INT8_SMOKE_ARCH))
-    m = build_model(scfg, generator=torch.Generator("cuda").manual_seed(SEED))
-    mq = build_model(scfg.replace(kv_cache_dtype="int8"), generator=torch.Generator("cuda"))
-    mq.load_state_dict(m.state_dict())
-    toks = torch.randint(0, scfg.vocab, (2, INT8_SMOKE_STEPS), device="cuda",
-                         generator=torch.Generator("cuda").manual_seed(SEED))
+    m = build_model(scfg, generator=SEED)
+    mq = build_model(scfg.replace(kv_cache_dtype="int8"), generator=SEED)   # the same weights
+    toks = InitStream(SEED).draw((2, INT8_SMOKE_STEPS), kind="integers", high=scfg.vocab,
+                                 dtype=torch.int32, device="cuda")
     full, _ = teacher_forced(m, m.init_cache(2, INT8_SMOKE_STEPS), toks)
     quant, _ = teacher_forced(mq, mq.init_cache(2, INT8_SMOKE_STEPS), toks)
     worst = float((full - quant).abs().amax(dim=(0, 2)).max())
@@ -2819,6 +3051,168 @@ def run_int8_decode(counts: dict) -> None:
         f"over {INT8_SMOKE_STEPS} steps {worst:.4f} (limit {INT8_SMOKE_GAP} at every step)")
     if not worst < INT8_SMOKE_GAP:
         raise AssertionError(f"int8 {INT8_SMOKE_ARCH}: the int8 decode is {worst} off")
+
+
+# the long_500k cell (configs/base.py's SHAPES): one decode step of one
+# sequence against a 524,288-deep cache, for the ssm and hybrid archs in
+# bf16 (cell_runnable: only they run it); zamba2's 9 shared-attention KV
+# caches hold 524,288 x 32 heads x 80 x 2 x 2 B = 5.37 GB each
+LONG_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+
+
+def run_long_500k(counts: dict) -> None:
+    """build_cell(cfg in bf16, SHAPES["long_500k"], make_host_mesh(1, 1)) on
+    the card from SEED, for each of LONG_ARCHS: a warm-up step at the
+    second-last slot, then the cell's step at the last, timed (wall and
+    peak memory printed); finite logits.  mamba2, whose state does not grow
+    with the context: its states filled from InitStream(SEED + 1) before the
+    warm-up, and the step from the same state on the CPU (the cell's
+    weights moved there) within BF16_DECODE_GAP of max |logit|.  zamba2:
+    each of its 9 KV caches written at the step's slot, zeros before it,
+    and its first K and V leaf equal everywhere else to a host copy taken
+    before the step."""
+    shape = SHAPES["long_500k"]
+    for arch in LONG_ARCHS:
+        cfg = get_arch(arch).replace(dtype="bfloat16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cell = build_cell(cfg, shape, make_host_mesh(1, 1, device="cuda"), generator=SEED)
+        torch.cuda.synchronize()
+        params, batch = cell.args
+        cache, pos = batch["cache"], shape.seq_len - 1
+        cache_gb = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9
+        log(f"long_500k {arch}: {cell.param_count} parameters "
+            f"({cell.param_bytes / 1e9:.2f} GB bf16) and a {shape.seq_len}-deep cache of "
+            f"{cache_gb:.2f} GB built in {time.perf_counter() - t0:.2f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if arch == "mamba2-2.7b":
+            states = InitStream(SEED + 1)
+            with torch.no_grad():
+                for leaf in tree_leaves(cache):
+                    leaf.copy_(states.draw(leaf.shape, dtype=leaf.dtype, device="cuda"))
+        cell.step(params, dict(batch, pos=torch.tensor(pos - 1)))      # warm-up, not timed
+        if arch == "mamba2-2.7b":
+            before = [leaf.to("cpu", copy=True) for leaf in tree_leaves(cache)]
+        else:
+            kv = cache["attn"]
+            if any(bool(c.k[:, pos].any()) or bool(c.v[:, pos].any()) for c in kv):
+                raise AssertionError("long_500k zamba2: a cache slot written before its step")
+            before = (kv[0].k.to("cpu", copy=True), kv[0].v.to("cpu", copy=True))
+        label = f"long_500k {arch} decode step at position {pos}"
+        (logits, _), _ = run_app(label, counts, lambda: cell.step(params, batch))
+        if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"long_500k {arch}: logits {tuple(logits.shape)} not finite "
+                                 "or of the wrong shape")
+        log(f"long_500k {arch}: the step's wall {WALLS[label] * 1e3:.2f} ms, peak device "
+            f"memory {PEAKS[label]:.3f} GiB")
+        if arch == "zamba2-2.7b":
+            if not all(bool(c.k[:, pos].any()) and bool(c.v[:, pos].any()) for c in kv):
+                raise AssertionError("long_500k zamba2: a KV cache not written at the step")
+            for name, old, new in (("k", before[0], kv[0].k), ("v", before[1], kv[0].v)):
+                new = new.cpu()
+                if not (torch.equal(new[:, :pos], old[:, :pos])
+                        and bool(new[:, pos].ne(old[:, pos]).any())):
+                    raise AssertionError(f"long_500k zamba2: the step wrote {name} outside "
+                                         f"slot {pos}, or not there")
+            log(f"long_500k zamba2: each of the {len(kv)} KV caches written at slot {pos}, "
+                f"the first K and V ({tuple(kv[0].k.shape)}, bf16) equal elsewhere to the "
+                "copy before the step")
+        else:
+            model = cell.model.to("cpu")
+            model.device = torch.device("cpu")
+            host = tree_unflatten(cache, before)
+            want, _ = model.decode_step(host, batch["tokens"].cpu(), pos)
+            delta = float((logits.float().cpu() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            log(f"long_500k mamba2: the card's step against the CPU's from the same state and "
+                f"weights: max |dlogit| {delta:.3e}, max |logit| {scale:.3e}, ratio "
+                f"{delta / scale:.3e} (limit {BF16_DECODE_GAP})")
+            if not delta <= BF16_DECODE_GAP * scale:
+                raise AssertionError("long_500k mamba2: the card's step is off the CPU's")
+            del model, host, want
+        del cell, params, batch, cache, logits, before
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The weights' draw: every model's leaves and inputs from a seed
+# ---------------------------------------------------------------------------
+
+DRAWS: dict = {}        # device type -> [values drawn, seconds], over the whole run
+OLD_DRAW: dict = {}     # values and seconds of the pre-seed draw on the card (phase 8)
+
+
+def count_draws() -> None:
+    """Wrap ``common.draw`` (every weight, token and input the script draws
+    from a seed) to add each call's values and seconds, between two
+    synchronisations, to DRAWS."""
+    inner = common.draw
+
+    def timed(key, shape, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(key, shape, **kw)
+        torch.cuda.synchronize()
+        if out.device.type != "meta":
+            d = DRAWS.setdefault(out.device.type, [0, 0.0])
+            d[0] += out.numel()
+            d[1] += time.perf_counter() - t0
+        return out
+
+    common.draw = timed
+
+
+def weight_draw_times() -> None:
+    """qwen3-1.7b's and zamba2-2.7b's weights at full width in fp32, as
+    train() builds them, drawn from SEED on the card (the build timed
+    between synchronisations); then the same leaves drawn the way the port
+    drew them before its stream was made device-independent
+    (``nn.init.trunc_normal_`` on the card's own generator, times the
+    fan-in scale; ``normal_`` times 0.02 for the embeddings), for the new
+    draw's cost."""
+    for arch in ("qwen3-1.7b", "zamba2-2.7b"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_model(get_arch(arch), generator=SEED)
+        torch.cuda.synchronize()
+        new = time.perf_counter() - t0
+        drawn = [p for p in model.parameters() if p.dim() >= 2]
+        n = sum(p.numel() for p in drawn)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for p in drawn:
+                t = torch.empty(p.shape, device="cuda")
+                if p.shape[0] == model.cfg.vocab:
+                    t.normal_(0.0, 1.0, generator=gen)
+                else:
+                    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                p.copy_((t * 0.02).to(p.dtype))
+                del t
+        torch.cuda.synchronize()
+        old = time.perf_counter() - t0
+        OLD_DRAW[arch] = (n, old)
+        log(f"draw {arch}: {n} weights drawn from the seed in {new:.3f} s ({n / new / 1e9:.2f} "
+            f"G values/s, the build included); the pre-seed draw of the same leaves on the "
+            f"card's generator {old:.3f} s ({n / old / 1e9:.2f} G values/s)")
+        del model, drawn
+        torch.cuda.empty_cache()
+
+
+def draw_summary() -> None:
+    """The run's draws, and what the pre-seed draw would have taken for the
+    card's share at qwen3's measured rate."""
+    n_old, s_old = OLD_DRAW.get("qwen3-1.7b", (0, 0.0))
+    for dev, (n, secs) in sorted(DRAWS.items()):
+        extra = ""
+        if dev == "cuda" and s_old:
+            extra = (f"; the pre-seed draw at phase 8's rate {n * s_old / n_old:.2f} s, so the "
+                     f"seed's draw costs {secs - n * s_old / n_old:.2f} s more")
+        log(f"draws on {dev}: {n} values in {secs:.2f} s{extra}")
 
 
 # ---------------------------------------------------------------------------
@@ -2926,11 +3320,39 @@ def train_full(arch: str, steps: int, counts: dict) -> list:
 
 
 def train_full_qwen3(counts: dict) -> None:
-    """(a): train() on qwen3-1.7b at its full config; the last loss below
-    the first."""
-    losses = train_full("qwen3-1.7b", TRAIN_STEPS, counts)
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train qwen3-1.7b: loss {losses[0]} -> {losses[-1]} did not fall")
+    """(a): train() on qwen3-1.7b at its full config (its model kept by
+    wrapping the trainer's ``build_model``): the trained weights fit the
+    first step's batch better than the initial weights did (that step's
+    logged loss).  The tokens are uniform over 151,936 classes, so a fresh
+    batch's loss moves by less than the noise between batches over 8 steps,
+    and the last loss need not be below the first (12.294 -> 12.319 from
+    the device-independent seed's weights)."""
+    built = []
+    trainer = importlib.import_module("repro_torch.launch.train")
+
+    def keep(cfg, **kw):
+        built.append(build_model(cfg, **kw))
+        return built[-1]
+
+    trainer.build_model = keep
+    try:
+        losses = train_full("qwen3-1.7b", TRAIN_STEPS, counts)
+    finally:
+        trainer.build_model = build_model
+    model = built.pop()
+    pipe = LMDataPipeline(TRAIN_BATCH, TRAIN_SEQ, model.cfg.vocab, seed=SEED, device="cuda")
+    try:
+        step, raw = pipe.next()
+    finally:
+        pipe.close()
+    with torch.no_grad():
+        after = float(model.loss_fn(batch_for(model.cfg, None, raw))[0])
+    log(f"train qwen3-1.7b: step {step}'s batch, loss {losses[0]:.4f} at the initial "
+        f"weights, {after:.4f} with the trained weights")
+    if not after < losses[0]:
+        raise AssertionError(f"train qwen3-1.7b: training did not lower the first batch's loss "
+                             f"({losses[0]} -> {after})")
+    del model
 
 
 def train_full_zamba2(counts: dict) -> None:
@@ -2957,7 +3379,7 @@ def pallas_backward_refused(arch: str, impl: dict) -> None:
     trained; its backward raises repro's NotImplementedError instead of
     leaving the kernel's inputs out of the graph."""
     cfg = smoke_config(get_arch(arch)).replace(**impl)
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model = build_model(cfg, generator=SEED)
     model.requires_grad_(True)
     batch = batch_for(cfg, None, shard_batch(lm_batch(0, 2, 64, cfg.vocab)))
     loss, _ = model.loss_fn(batch)
@@ -2969,19 +3391,18 @@ def pallas_backward_refused(arch: str, impl: dict) -> None:
         raise AssertionError(f"{arch}: a backward through {impl} did not raise")
 
 
-def card_vs_cpu(arch: str, counts: dict) -> None:
-    """``arch``'s smoke_config on the card against the port's CPU path from
-    the same weights and batches, SMOKE_STEPS steps: losses within
-    CARD_VS_CPU_RTOL."""
-    cfg = smoke_config(get_arch(arch))
-    weights = build_model(cfg, device="cpu").state_dict()
+def card_vs_cpu(arch: str, counts: dict, **kw) -> None:
+    """``train(arch, smoke=True)`` from SEED on the CPU and on the card,
+    SMOKE_STEPS steps of the trainer's batches: each device draws the seed's
+    weights itself (ROADMAP Queue 3 fault 4), so the losses agree within
+    CARD_VS_CPU_RTOL.  ``kw`` goes to ``train`` (a mesh's axes)."""
     losses = []
     for dev in ("cpu", "cuda"):
-        model = build_model(cfg, device=dev)
-        model.load_state_dict(weights)
-        opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, SMOKE_STEPS))
-        (run, _), _ = run_app(f"train {arch} smoke {SMOKE_STEPS} steps on {dev}", counts,
-                              lambda: train_loop(model, opt, SMOKE_STEPS, dev))
+        run, _ = run_app(f"train() {arch} smoke {SMOKE_STEPS} steps on {dev}", counts,
+                         lambda: train(arch, smoke=True, steps=SMOKE_STEPS, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS,
+                                       device=dev, **kw))
+        check_losses(f"train() {arch} on {dev}", run, SMOKE_STEPS)
         losses.append(run)
     cpu_losses, card_losses = losses
     rel = max_rel(card_losses, cpu_losses)
@@ -2993,9 +3414,9 @@ def card_vs_cpu(arch: str, counts: dict) -> None:
 
 
 def train_smoke_checks(counts: dict) -> None:
-    """(b): smoke_config on the card against the port's CPU path from the
-    same weights and batches; then train() stopped at a checkpoint and
-    resumed, against its uninterrupted run."""
+    """(b): train() on smoke_config on the card against the CPU from the
+    seed alone; then train() stopped at a checkpoint and resumed, against
+    its uninterrupted run."""
     card_vs_cpu("qwen3-1.7b", counts)
 
     kw = dict(smoke=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS)
@@ -3019,7 +3440,7 @@ def train_mamba_cut(counts: dict) -> None:
     its 64 layers at fp32 with AdamW need ~45 GB of state before
     activations."""
     cfg = get_arch("mamba2-2.7b").replace(n_layers=MAMBA_TRAIN_LAYERS)
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model = build_model(cfg, generator=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"train mamba2-2.7b: depth cut to {MAMBA_TRAIN_LAYERS} of 64 layers, {n_params} "
         f"parameters ({n_params * 16 / 1e9:.2f} GB of fp32 params, grads and two moments)")
@@ -3043,7 +3464,7 @@ def train_moonshot_cut(counts: dict) -> None:
     MoE layers: finite losses and balance losses (aux), no flash_attention
     launch (blocked attention, as repro trains)."""
     cfg = get_arch("moonshot-v1-16b-a3b").replace(n_layers=MOONSHOT_TRAIN_LAYERS)
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model = build_model(cfg, generator=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"train moonshot-v1-16b-a3b: depth cut to {MOONSHOT_TRAIN_LAYERS} of 48 layers "
         f"({cfg.first_dense_layers} dense, {MOONSHOT_TRAIN_LAYERS - cfg.first_dense_layers} "
@@ -3077,7 +3498,7 @@ def zero1_run(counts: dict):
     2e-2.  The model's weights follow the master from step to step.
     Returns the positions' last gradients, packed, for (e)."""
     cfg = get_arch("qwen3-1.7b").replace(n_layers=ZERO_LAYERS)
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    model = build_model(cfg, generator=SEED)
     model.requires_grad_(True)
     params = model.param_tree()
     n_params = sum(p.numel() for p in params.values())
@@ -3192,6 +3613,7 @@ def run_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     counts: dict = {}
+    weight_draw_times()
     train_full_qwen3(counts)
     pallas_backward_refused("qwen3-1.7b", {"attention_impl": "pallas"})
     torch.cuda.empty_cache()
@@ -3255,7 +3677,7 @@ def ep_prefill(counts: dict) -> None:
     mesh = make_host_mesh(**EP_MESH, device="cuda")
     shape = ShapeSpec("ep_prefill", LM_PREFILL, LM_BATCH, "prefill")
     t0 = time.perf_counter()
-    cell = build_cell(cfg, shape, mesh, generator=torch.Generator("cuda").manual_seed(SEED))
+    cell = build_cell(cfg, shape, mesh, generator=SEED)
     torch.cuda.synchronize()
     model, (params, batch) = cell.model, cell.args
     log(f"mesh {EP_ARCH} ep: {cell.param_count} parameters, {cfg.n_layers} of "
@@ -3270,23 +3692,20 @@ def ep_prefill(counts: dict) -> None:
     kernels = {"flash_attention": cfg.n_layers}
     label = f"mesh {EP_ARCH} ep prefill {LM_BATCH}x{LM_PREFILL}"
     with record_collectives() as rec:
-        t0 = time.perf_counter()
         logits, launched = run_app(label, counts, lambda: cell.step(params, batch))
-        rate = LM_BATCH * LM_PREFILL / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     expect_launches(f"{EP_ARCH} ep prefill", launched, kernels)
     if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"{EP_ARCH} ep prefill: logits not finite or of the wrong shape")
     del logits
-    # both rates by run_app's wall (the collection before it left out), as
-    # phase 7 logs its gather path's
+    # both rates by run_app's wall (its collection and synchronize before it
+    # left out), as phase 7 prints its gather path's
     gather_label = f"lm {EP_ARCH} prefill {LM_BATCH}x{LM_PREFILL}"
     beside = (f"{LM_BATCH * LM_PREFILL / WALLS[gather_label]:.1f} tokens/s, peak "
               f"{PEAKS[gather_label]:.3f} GiB" if gather_label in WALLS else "not run")
     log(f"mesh {EP_ARCH} ep prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by "
-        f"run_app's wall ({rate:.1f} with its collection), peak device memory {peak:.3f} GiB; "
-        f"phase 7's gather path: {beside}")
+        f"run_app's wall, peak device memory {peak:.3f} GiB; phase 7's gather path: {beside}")
     want = ep_analytic_bytes(cfg, LM_BATCH * LM_PREFILL, mesh)
     for linear in range(mesh.size):
         got = rec.stats(linear).bytes_by_op
@@ -3336,38 +3755,20 @@ def ep_prefill(counts: dict) -> None:
 
 
 def ep_training(counts: dict) -> None:
-    """(c): moonshot's smoke_config with moe_impl="ep" on a (2, 2) mesh."""
-    cfg = smoke_config(get_arch(EP_ARCH)).replace(moe_impl="ep")
-    weights = build_model(cfg, device="cpu").state_dict()
-    losses = []
-    for dev in ("cpu", "cuda"):
-        shardings.set_mesh_axis_sizes(make_host_mesh(EP_TRAIN_MESH["data"],
-                                                     EP_TRAIN_MESH["model_axis"], device=dev))
-        model = build_model(cfg, device=dev, data_groups=EP_TRAIN_MESH["data"])
-        model.load_state_dict(weights)
-        opt = adamw(lr=warmup_cosine(TRAIN_LR, 1, SMOKE_STEPS))
-        metrics: list = []
-        (run, _), _ = run_app(f"mesh train {EP_ARCH} smoke ep {SMOKE_STEPS} steps on {dev}",
-                              counts, lambda: train_loop(model, opt, SMOKE_STEPS, dev, metrics))
-        check_losses(f"mesh train ep on {dev}", run, SMOKE_STEPS)
-        losses.append(run)
-    rel = max_rel(losses[1], losses[0])
-    log(f"mesh train {EP_ARCH} smoke ep {EP_TRAIN_MESH}: card against CPU, max relative loss "
-        f"difference {rel:.3e} (limit {CARD_VS_CPU_RTOL}); card losses {losses[1]}; aux "
-        f"{[round(m['aux'], 6) for m in metrics]}")
-    if not rel <= CARD_VS_CPU_RTOL:
-        raise AssertionError(f"ep training: the card's losses are {rel:.3e} off the CPU's")
+    """(c): moonshot's smoke_config with moe_impl="ep": train(data=2,
+    model_axis=2) from SEED on the CPU and on the card (``card_vs_cpu``),
+    then one backward through an EP layer on the card."""
     with arch_cut(EP_ARCH, moe_impl="ep"):
-        run, _ = run_app(f"mesh train() {EP_ARCH} smoke ep {EP_TRAIN_MESH}", counts,
-                         lambda: train(EP_ARCH, smoke=True, steps=SMOKE_STEPS, batch=TRAIN_BATCH,
-                                       seq=TRAIN_SEQ, seed=SEED, log_every=SMOKE_STEPS,
-                                       **EP_TRAIN_MESH))
-    check_losses("mesh train() ep", run, SMOKE_STEPS)
+        card_vs_cpu(EP_ARCH, counts, **EP_TRAIN_MESH)
+    cfg = smoke_config(get_arch(EP_ARCH)).replace(moe_impl="ep")
+    shardings.set_mesh_axis_sizes(make_host_mesh(EP_TRAIN_MESH["data"],
+                                                 EP_TRAIN_MESH["model_axis"], device="cuda"))
+    model = build_model(cfg, generator=SEED, data_groups=EP_TRAIN_MESH["data"])
+    model.requires_grad_(True)
 
     # one backward through an EP layer: finite, nonzero gradients
     blk = next(b for b in model.segments["seg1"])
-    x = torch.randn(TRAIN_BATCH, 16, cfg.d_model, device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(SEED), requires_grad=True)
+    x = InitStream(SEED).draw((TRAIN_BATCH, 16, cfg.d_model), device="cuda").requires_grad_()
     for t in blk["moe"].parameters():
         t.grad = None
     y, aux = blk["moe"](x, model.moe_cfg)
@@ -3461,6 +3862,7 @@ def main() -> None:
             f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "
             f"graph replay {m.get('device_ms')} ms, library's {m.get('library_device_ms')} ms")
 
+    count_draws()
     keep: dict = {}
     counts = run_apps(keep)
     for name, n in run_armed(keep).items():
@@ -3473,6 +3875,7 @@ def main() -> None:
         counts[name] = counts.get(name, 0) + n
     for name, n in run_mesh().items():
         counts[name] = counts.get(name, 0) + n
+    draw_summary()
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")

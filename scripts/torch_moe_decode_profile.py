@@ -96,7 +96,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_info(), flush=True)
     cfg = get_arch(args.arch).replace(n_layers=args.layers or LAYERS[args.arch])
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    model = build_model(cfg, generator=0)
     weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
                   if not n.startswith("mtp.") and n != "embed.table")
     tokens = torch.randint(0, cfg.vocab, (BATCH, WARM + args.steps), device="cuda",

@@ -42,7 +42,7 @@ def main(argv=None):
     print("card:", card_info())
     cfg = get_arch(args.arch)
     cfg = cfg.replace(n_layers=args.layers or cfg.n_layers)
-    model = build_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    model = build_model(cfg, generator=0)
     model.requires_grad_(True)
     params = model.param_tree()
     unit = sum(p.numel() * p.element_size() for p in params.values())

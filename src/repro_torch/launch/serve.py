@@ -41,8 +41,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: int = 32
         cfg = smoke_config(cfg)
     if cfg.family == "audio":
         raise SystemExit("encoder-only arch has no decode path")
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator(device).manual_seed(seed))
+    model = build_model(cfg, device=device, generator=seed)      # the same on any device
 
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(batch, prompt_len)),

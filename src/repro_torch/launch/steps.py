@@ -11,7 +11,8 @@ degree), the step, its inputs and their PartitionSpecs.  On
 ``device="meta"`` nothing is allocated, as ``repro``'s ShapeDtypeStructs
 allocate nothing: the model is built on meta and the inputs are meta
 tensors of every input's shape and dtype.  On the card or the CPU the cell
-holds the model with its weights and inputs drawn from ``generator``.  The
+holds the model with its weights and inputs drawn from ``generator``'s
+seed, the same on every device.  The
 mesh's positions share one device, so the specs give each position's bytes
 (``Cell.local_bytes``), not where the bytes live.
 """
@@ -27,6 +28,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.compat import Mesh, P
 from repro_torch.device import resolve_device
 from repro_torch.launch import shardings as sh
+from repro_torch.models.common import InitStream, Seed, init_stream
 from repro_torch.optim import Optimizer, adamw, clip_by_global_norm
 from repro_torch.utils.tree import tree_bytes, tree_count, tree_leaves, tree_unflatten
 
@@ -122,17 +124,22 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec, model) -> dict:
             batch.pop("labels")
         return batch
     # decode: one new token against a seq_len-deep cache
-    cache = model.init_cache(B, T)
-    if model.device.type != "meta":
-        cache = _to_meta(cache)
-    batch = {"cache": cache, "tokens": sds((B, 1), i32), "pos": sds((), i32)}
+    batch = {"cache": _meta_cache(model, B, T), "tokens": sds((B, 1), i32),
+             "pos": sds((), i32)}
     if cfg.family == "vlm":
         batch["vision_embeds"] = sds((B, cfg.vision_tokens, cfg.vision_dim or cfg.d_model), act)
     return batch
 
 
-def _to_meta(tree):
-    return tree_unflatten(tree, [torch.empty_like(t, device="meta") for t in tree_leaves(tree)])
+def _meta_cache(model, batch: int, max_len: int):
+    """``model.init_cache(batch, max_len)`` made on meta whatever the
+    model's device, so that no cache is allocated beside the one
+    ``_materialize`` makes (long_500k's caches hold 48 GB for zamba2)."""
+    device, model.device = model.device, torch.device("meta")
+    try:
+        return model.init_cache(batch, max_len)
+    finally:
+        model.device = device
 
 
 def batch_shard_specs(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, model, batch_sds) -> Any:
@@ -149,10 +156,11 @@ def batch_shard_specs(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, model, batc
 
 
 def _materialize(batch_sds: dict, cfg: ArchConfig, shape: ShapeSpec, model, device,
-                 generator: Optional[torch.Generator]) -> dict:
-    """Inputs of the stand-ins' shapes and dtypes on ``device``: integer
-    tokens and labels below the vocabulary, float inputs N(0, 1), a decode
-    cell's cache the model's zeros and its position the last slot."""
+                 stream: InitStream) -> dict:
+    """Inputs of the stand-ins' shapes and dtypes on ``device``, drawn from
+    ``stream`` after the model's weights (the same on every device):
+    integer tokens and labels below the vocabulary, float inputs N(0, 1), a
+    decode cell's cache the model's zeros and its position the last slot."""
     out = {}
     for name, x in batch_sds.items():
         if name == "cache":
@@ -160,10 +168,10 @@ def _materialize(batch_sds: dict, cfg: ArchConfig, shape: ShapeSpec, model, devi
         elif name == "pos":
             out[name] = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
         elif x.dtype.is_floating_point:
-            out[name] = torch.randn(x.shape, generator=generator, device=device).to(x.dtype)
+            out[name] = stream.draw(x.shape, dtype=x.dtype, device=device)
         else:
-            out[name] = torch.randint(0, cfg.vocab, x.shape, generator=generator,
-                                      device=device, dtype=x.dtype)
+            out[name] = stream.draw(x.shape, kind="integers", high=cfg.vocab, dtype=x.dtype,
+                                    device=device)
     return out
 
 
@@ -200,9 +208,11 @@ class Cell:
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *, fsdp: bool = False,
                opt: Optional[Optimizer] = None, device=None,
-               generator: Optional[torch.Generator] = None) -> Cell:
+               generator: Seed = None) -> Cell:
     """Assemble the model, step and inputs for one (arch × shape × mesh) on
-    ``device`` (``None``: the card; ``"meta"``: allocating nothing)."""
+    ``device`` (``None``: the card; ``"meta"``: allocating nothing), the
+    weights and then the inputs drawn from ``generator``'s seed (as
+    ``build_model``'s: the same on every device)."""
     from repro_torch.models.build import build_model
 
     device = resolve_device(device)
@@ -212,16 +222,15 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *, fsdp: bool = Fa
     for ax in dp_axes:
         dp *= int(mesh.shape[ax])
     cfg = cfg.replace(batch_axes=dp_axes)
-    if generator is None and device.type != "meta":
-        generator = torch.Generator(device).manual_seed(0)
-    model = build_model(cfg, device, generator, data_groups=dp)
+    stream = init_stream(generator)
+    model = build_model(cfg, device, stream, data_groups=dp)
 
     params = model.param_tree()
     p_specs = sh.param_specs(params, fsdp=fsdp)
     batch_sds = input_specs(cfg, shape, model)
     b_specs = batch_shard_specs(cfg, shape, mesh, model, batch_sds)
     batch = batch_sds if device.type == "meta" else _materialize(
-        batch_sds, cfg, shape, model, device, generator)
+        batch_sds, cfg, shape, model, device, stream)
 
     vocab_ax = "model" if cfg.vocab % int(mesh.shape["model"]) == 0 else None
     B, T = shape.global_batch, shape.seq_len

@@ -69,8 +69,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         cfg = smoke_config(cfg)
     mesh = make_host_mesh(data=data, model=model_axis, device=device)
     sh.set_mesh_axis_sizes(mesh)
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator(device).manual_seed(seed), data_groups=data)
+    # the weights from the seed alone, the same on any device, as repro's
+    # model.init(PRNGKey(seed))
+    model = build_model(cfg, device=device, generator=seed, data_groups=data)
     # total_steps fixes the LR schedule independent of this invocation's
     # horizon, so checkpoint-resume reproduces the uninterrupted run exactly
     total = total_steps or steps

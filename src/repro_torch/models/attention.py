@@ -27,13 +27,13 @@ under ``"pallas"`` the flash kernel runs it with T != S.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.common import apply_rope, dense_init, params, rms_norm
+from repro_torch.models.common import Seed, apply_rope, dense_init, init_stream, params, rms_norm
 
 NEG_INF = -1e30
 
@@ -132,7 +132,8 @@ class GQAConfig(NamedTuple):
 
 
 def init_gqa(cfg: GQAConfig, *, dtype=torch.float32, device=None,
-             generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+             generator: Seed = None) -> nn.ParameterDict:
+    generator = init_stream(generator)
     D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, device=device, generator=generator)
     p = {
@@ -297,7 +298,8 @@ class MLAConfig(NamedTuple):
 
 
 def init_mla(cfg: MLAConfig, *, dtype=torch.float32, device=None,
-             generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+             generator: Seed = None) -> nn.ParameterDict:
+    generator = init_stream(generator)
     D, H = cfg.d_model, cfg.n_heads
     r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim

@@ -80,8 +80,9 @@ from repro_torch.models.attention import (GQAConfig, KVCache, MLACache, MLAConfi
                                           QuantKVCache, cross_attend, gqa_attend, gqa_decode,
                                           init_gqa, init_gqa_cache, init_mla, init_mla_cache,
                                           mla_attend, mla_decode, naive_attention)
-from repro_torch.models.common import (Tree, bf16_boundary, chunked_softmax_cross_entropy,
-                                       dense_init, embed_init, layer_norm, params, rms_norm,
+from repro_torch.models.common import (InitStream, Seed, Tree, bf16_boundary,
+                                       chunked_softmax_cross_entropy, dense_init, embed_init,
+                                       init_stream, layer_norm, params, rms_norm,
                                        softmax_cross_entropy)
 from repro_torch.models.ffn import MoEConfig, dense_ffn, init_dense_ffn, init_moe
 from repro_torch.models.mamba import (MambaCache, SSMConfig, init_mamba2,
@@ -205,7 +206,7 @@ class Model(nn.Module):
     token embedding (which the audio encoder has not), final norm and head
     shared by the families."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator,
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: InitStream,
                  *, embed: bool = True):
         super().__init__()
         self.cfg = cfg
@@ -342,7 +343,7 @@ class DecoderLM(Model):
     ``nn.ModuleDict`` of ``self`` (a list of ``cross_attn_period - 1``
     blocks) and ``cross`` (one block)."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator,
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: InitStream,
                  data_groups: int = 1):
         super().__init__(cfg, device, generator)
         if cfg.attn_kind == "mla":
@@ -514,7 +515,7 @@ class SSMLM(Model):
     ``n_layers // hybrid_period`` superblocks runs ``hybrid_period`` Mamba2
     blocks, then the one ``shared_block``."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: InitStream):
         super().__init__(cfg, device, generator)
         self.ssm = _ssm_cfg(cfg)
         self.hybrid = cfg.family == "hybrid"
@@ -604,7 +605,7 @@ class AudioEncoder(Model):
     init_cache = None
     decode_step = None
 
-    def __init__(self, cfg: ArchConfig, device: torch.device, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, device: torch.device, generator: InitStream):
         super().__init__(cfg, device, generator, embed=False)
         self.gqa = _gqa_cfg(cfg)._replace(causal=False)
         self.in_proj = params({"w": dense_init((cfg.frame_dim, cfg.d_model), in_axis=0,
@@ -635,20 +636,19 @@ class AudioEncoder(Model):
 # ---------------------------------------------------------------------------
 
 
-def build_model(cfg: ArchConfig, device=None, generator: Optional[torch.Generator] = None,
+def build_model(cfg: ArchConfig, device=None, generator: Seed = None,
                 *, data_groups: int = 1) -> Model:
     """The model of ``cfg`` on ``device`` (``None``: the card), its weights
-    drawn from ``generator`` (default: seed 0 on that device; on ``"meta"``
-    no generator, since nothing is drawn); an MoE model routes its
-    forward's tokens in ``data_groups`` groups, as ``repro``'s
-    ``build_model(cfg, data_groups)``."""
+    drawn from ``generator``'s seed (:func:`~repro_torch.models.common.init_stream`:
+    an int, an :class:`InitStream`, which draws on from where it is, or a
+    ``torch.Generator`` of any device, read only for its ``initial_seed()``;
+    default seed 0), the same on every device; on ``"meta"`` nothing is
+    drawn.  An MoE model routes its forward's tokens in ``data_groups``
+    groups, as ``repro``'s ``build_model(cfg, data_groups)``."""
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
-    if device.type == "meta":
-        generator = None            # a meta tensor's init draws nothing
-    elif generator is None:
-        generator = torch.Generator(device).manual_seed(0)
+    generator = init_stream(generator)
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, device, generator, data_groups)
     if cfg.family == "audio":

@@ -30,13 +30,13 @@ gradient come from one position each.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core.compat import P, all_gather, all_to_all, axis_index, axis_size, pmean, shard_map
-from repro_torch.models.common import Tree, dense_init, params
+from repro_torch.models.common import Seed, Tree, dense_init, init_stream, params
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +46,8 @@ from repro_torch.models.common import Tree, dense_init, params
 
 def init_dense_ffn(d_model: int, d_ff: int, *, kind: str = "swiglu", bias: bool = False,
                    dtype=torch.float32, device=None,
-                   generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+                   generator: Seed = None) -> nn.ParameterDict:
+    generator = init_stream(generator)
     kw = dict(in_axis=0, dtype=dtype, device=device, generator=generator)
     if kind == "swiglu":
         p = {
@@ -108,7 +109,8 @@ class MoE(Tree):
 
 
 def init_moe(cfg: MoEConfig, *, dtype=torch.float32, device=None,
-             generator: Optional[torch.Generator] = None) -> MoE:
+             generator: Seed = None) -> MoE:
+    generator = init_stream(generator)
     E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     kw = dict(dtype=dtype, device=device, generator=generator)
     leaves = {

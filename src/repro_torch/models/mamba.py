@@ -11,14 +11,14 @@ ssm_state), updated in place: O(1) per token in the context length.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-from repro_torch.models.common import dense_init, params, rms_norm
+from repro_torch.models.common import Seed, dense_init, init_stream, params, rms_norm
 
 __all__ = ["MambaCache", "SSMConfig", "init_mamba2", "init_mamba_cache", "mamba2_decode",
            "mamba2_forward", "ssd_chunked"]
@@ -44,7 +44,8 @@ class SSMConfig(NamedTuple):
 
 
 def init_mamba2(cfg: SSMConfig, *, dtype=torch.float32, device=None,
-                generator: Optional[torch.Generator] = None) -> nn.ParameterDict:
+                generator: Seed = None) -> nn.ParameterDict:
+    generator = init_stream(generator)
     D, DI, H, G, N, K = (cfg.d_model, cfg.d_inner, cfg.n_heads,
                          cfg.n_groups, cfg.d_state, cfg.conv_kernel)
     d_proj = 2 * DI + 2 * G * N + H      # [z, x, B, C, dt]

@@ -35,6 +35,7 @@ from repro.launch.train import train as j_train  # noqa: E402
 from repro.models.build import build_model as j_build_model  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import LMDataPipeline, lm_batch  # noqa: E402
+from repro_torch.ft import restore_checkpoint as t_restore  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bhsd, flash_attention_gqa, gqa_plain)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bh  # noqa: E402
@@ -324,13 +325,33 @@ def test_checkpoint_resume_exact():
 
 
 def test_ssm_trains_and_resumes():
+    """Resumed from step 3's checkpoint, the run's losses are the
+    uninterrupted run's; and the weights of that checkpoint fit step 0's
+    batch better than the initial weights did (``full[0]``).  Tokens are
+    uniform over 256 classes, so the loss of 2 x 16 new tokens a step is
+    noise about ln 256 from step to step: it is the trained batch's loss
+    that falls."""
+    cfg = configs.smoke_config(configs.get_arch("mamba2-2.7b"))
     with tempfile.TemporaryDirectory() as d:
         full = train("mamba2-2.7b", smoke=True, steps=6, batch=2, seq=16, lr=3e-3, device="cpu")
         train("mamba2-2.7b", smoke=True, steps=4, batch=2, seq=16, lr=3e-3, ckpt_dir=d,
               ckpt_every=3, total_steps=6, device="cpu")
+        model = build_model(cfg, device="cpu", generator=1)
+        params = model.param_tree()
+        (saved, _), _, step = t_restore(d, (params, adamw(lr=3e-3).init(params)), device="cpu")
         resumed = train("mamba2-2.7b", smoke=True, steps=6, batch=2, seq=16, lr=3e-3,
                         ckpt_dir=d, device="cpu")
-    assert resumed == full[4:] and full[-1] < full[0]
+    assert resumed == full[4:] and step == 3
+    pipe = LMDataPipeline(2, 16, cfg.vocab, seed=0, device="cpu")
+    try:
+        _, batch0 = pipe.next()
+    finally:
+        pipe.close()
+    with torch.no_grad():
+        for p, s in zip(tree_leaves(params), tree_leaves(saved)):
+            p.copy_(s)
+        trained = float(model.loss_fn(batch0)[0])
+    assert trained < full[0] - 0.5, (trained, full[0])
 
 
 def test_repro_run_goes_on_in_the_port():
