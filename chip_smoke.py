@@ -61,7 +61,11 @@ Phases, in order; any failure raises and the run exits non-zero:
              output), hubert-xlarge's MHA
              (q (4, 2048, 16, 1, 80), non-causal), SDPA beside each
              (check_vlm_audio_shapes; logged, not in the kernels line);
-             check_flash's edges take the non-causal ones at small sizes.
+             check_flash's edges take the non-causal ones at small sizes;
+             and at the dense family's GQA shapes, causal, fp32 and bf16:
+             starcoder2-3b's 24 query heads over 2 KV heads (G 12) and
+             qwen3-4b's 32 over 8 (G 4), SDPA beside each
+             (check_dense_shapes).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
              graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
@@ -99,7 +103,12 @@ Phases, in order; any failure raises and the run exits non-zero:
              stay armed after.  Then three seeded defects on the card: the
              race demo's lost update (both sites), a barrier-arity lint
              (CheckError before any thread starts), a DBarrier under the
-             SPMD backend (spmd-host-sync).
+             SPMD backend (spmd-host-sync).  Last,
+             scripts/torch_make_report.py's --export-check (four apps armed
+             with no finding, the seeded race caught: one read-write and one
+             write-write finding) and --export-trace (a traced 2-thread
+             logreg fit: 50 spans in four categories) on the card, into
+             build/report (report_exports).
 6. ft      — the tiered store, live rebalancing and ft/ on the card: (a) a
              4-shard store with a host cold tier and half of its 2,048 x 1 MiB
              fp32 entries (2 GiB) demoted, under 4 writer threads (set then
@@ -163,7 +172,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              bf16, F in bf16) against 256 bf16 decode steps, timed in four
              64-step blocks with their peak memory, within BF16_DECODE_GAP
              of max |logit|, each argmax flip printed with its top-2
-             margin; where fp32 fits (not moonshot whole, nor the vlm),
+             margin; where fp32 fits (not moonshot whole, nor the vlm, nor
+             qwen2-72b's cut; mamba2 and zamba2 at BF16_DEEP's cut only),
              the fp32 decode of the same bf16 weights beside it (error rms
              over the logits' rms within BF16_VS_F32_RMS, max within
              BF16_DECODE_GAP but for the moe family's routing flips); then
@@ -177,7 +187,15 @@ Phases, in order; any failure raises and the run exits non-zero:
              (repro's decode never fills them), the same gap limit; (c)
              serve(smoke=False) at the same cut on the zero cross caches, as
              repro serves it; then 7 of 20 superblocks in bf16, one prefill
-             (E's bf16 body x 35).  hubert-xlarge whole in fp32: a 4 x 2048-
+             (E's bf16 body x 35).  The dense family's last three configs
+             as qwen3-1.7b is run, in fp32 and in bf16 (LM_MODELS,
+             BF16_RUNS): starcoder2-3b (LayerNorm, GELU FFN with biases,
+             QKV bias; E x 30 at G 12) and qwen3-4b (qk-norm; E x 36 at G
+             4) whole, qwen2-72b (QKV bias; E at G 8) cut to
+             QWEN2_LAYERS_F32 of 80 layers in fp32 and QWEN2_LAYERS_BF16 in
+             bf16, served in bf16 only; their forward-vs-decode argmax may
+             differ only at a near tie, each flip printed with its margin.
+             hubert-xlarge whole in fp32: a 4 x 2048-
              frame encode (E x 48, its share printed) and the kernel's
              logits against blocked attention's on 256 frames.  The int8
              KV cache: qwen3-1.7b at full width, 256 teacher-forced steps
@@ -241,6 +259,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              (within 1e-4); a backward through the flash kernel must raise
              for both families.  The vlm at full width does not train on
              one card: its embeddings and head alone are 2.1 B parameters.
+             (j) starcoder2-3b's and qwen2-72b's smoke_config card against
+             CPU (within 1e-4): QKV bias's gradients on the card.
 9. mesh    — expert parallelism (moe_impl="ep") over a mesh of positions
              as threads on the card, through build_cell: (a)
              moonshot-v1-16b-a3b in fp32 cut to 24 of its 48 layers, every
@@ -265,12 +285,13 @@ Phases, in order; any failure raises and the run exits non-zero:
              RooflineRecord on the H100's constants and its wall time
              printed (moonshot-v1-16b-a3b's as well where deepseek's passes
              60 s).
-10. result — one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
-             the ``{"ok": true, ...}`` line last.
+10. result — the script's wall, one ``{"kernels": [...]}`` JSON line, the
+             nvidia-smi line, and the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import importlib
@@ -393,13 +414,28 @@ KERNELS = {
                            "src/repro/kernels/sparse_update/kernel.py:39"),
 }
 
+# qwen2-72b (72.7 B parameters, 291 GB in fp32) cut in whole layers: the most
+# that leave the card >= 8 GB beside a 4 x 2048 prefill's peak
+# (scripts/torch_depth_cut.py), in fp32 and in bf16
+QWEN2_LAYERS_F32, QWEN2_LAYERS_BF16 = 15, 36
+# the dense archs whose forward and decode may pick different tokens where
+# the forward's top two logits lie within 2 max |dlogit| (random weights
+# over ~150k classes), each flip printed with its margin; and the one whose
+# fp32 cut is not served (its bf16 cut is)
+NEAR_TIE_ARCHS = ("starcoder2-3b", "qwen3-4b", "qwen2-72b")
+BF16_SERVE_ONLY = ("qwen2-72b",)
+# phase 3's row whose E shape an arch's prefill gives E (qwen2-72b's 64 query
+# heads over 8 at head dim 128 are the vlm's self attention's)
+E_SHAPE_OF = {"qwen2-72b": "llama-3.2-vision-90b self"}
+
 # the LM serving path: each model at its full published widths, with the
 # prefill implementations that run its kernels and the launches of each in
 # one prefill forward (zamba2: 9 applications of the shared attention block,
 # 54 mamba layers); the moe family in fp32, its configs' dtype, cut in whole
 # layers, the leading dense layers and MoE layers after them kept (whole,
 # moonshot-v1-16b-a3b holds 28.4 B parameters, 113.5 GB, and
-# deepseek-v3-671b ~2.7 TB); prefill batch x length
+# deepseek-v3-671b ~2.7 TB); the dense family's starcoder2-3b (12.7 GB) and
+# qwen3-4b (17.6 GB) whole, qwen2-72b at QWEN2_LAYERS_F32 of 80 layers
 LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28}),
              "mamba2-2.7b": ({"ssd_impl": "pallas"}, {"ssd_scan": 64}),
              "zamba2-2.7b": ({"attention_impl": "pallas", "ssd_impl": "pallas"},
@@ -407,7 +443,11 @@ LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28
              "moonshot-v1-16b-a3b": ({"attention_impl": "pallas", "n_layers": 24},
                                      {"flash_attention": 24}),
              "deepseek-v3-671b": ({"attention_impl": "pallas", "n_layers": 4},
-                                  {"flash_attention": 4})}
+                                  {"flash_attention": 4}),
+             "starcoder2-3b": ({"attention_impl": "pallas"}, {"flash_attention": 30}),
+             "qwen3-4b": ({"attention_impl": "pallas"}, {"flash_attention": 36}),
+             "qwen2-72b": ({"attention_impl": "pallas", "n_layers": QWEN2_LAYERS_F32},
+                           {"flash_attention": QWEN2_LAYERS_F32})}
 # repro's serving policy, bf16 parameters and compute (run_lm_bf16): each
 # arch's cut, the kernels' launches in one forward, whether it also runs a
 # 4 x 2048 prefill and whether its fp32 build fits beside nothing else for
@@ -415,7 +455,9 @@ LM_MODELS = {"qwen3-1.7b": ({"attention_impl": "pallas"}, {"flash_attention": 28
 # (5.66 GB) and zamba2-2.7b (4.85 GB) whole; moonshot-v1-16b-a3b whole
 # (56.8 GB, the router fp32: 113.5 GB in fp32); deepseek-v3-671b at 4 of 61
 # layers (31.6 GB; the absorbed MLA decode); llama-3.2-vision-90b at 7 of 20
-# superblocks (64.2 GB), its cross caches filled as run_vlm fills them
+# superblocks (64.2 GB), its cross caches filled as run_vlm fills them;
+# starcoder2-3b (6.36 GB) and qwen3-4b (8.82 GB) whole; qwen2-72b at
+# QWEN2_LAYERS_BF16 of 80 layers (no fp32 beside it)
 BF16_RUNS = {
     "qwen3-1.7b": ({"attention_impl": "pallas"},
                    {"flash_attention_bf16": 28, "flash_attention": 28}, True, True),
@@ -429,6 +471,13 @@ BF16_RUNS = {
                          {"flash_attention_bf16": 4, "flash_attention": 4}, False, True),
     "llama-3.2-vision-90b": ({"attention_impl": "pallas", "n_layers": 35},
                              {"flash_attention_bf16": 35, "flash_attention": 35}, True, False),
+    "starcoder2-3b": ({"attention_impl": "pallas"},
+                      {"flash_attention_bf16": 30, "flash_attention": 30}, True, True),
+    "qwen3-4b": ({"attention_impl": "pallas"},
+                 {"flash_attention_bf16": 36, "flash_attention": 36}, True, True),
+    "qwen2-72b": ({"attention_impl": "pallas", "n_layers": QWEN2_LAYERS_BF16},
+                  {"flash_attention_bf16": QWEN2_LAYERS_BF16,
+                   "flash_attention": QWEN2_LAYERS_BF16}, True, False),
 }
 # bf16 limits, each of the step's logits: the forward against the decode,
 # and the decode against the fp32 decode of the same weights (max |dlogit|
@@ -442,9 +491,12 @@ BF16_DECODE_GAP, BF16_VS_F32_RMS = 6e-2, 6e-2
 # its bf16 and fp32 decodes, part as far as rounding apart lets them
 # (mamba2 0.94 of max |logit| on the card; scripts/torch_bf16_depth.py on
 # the CPU at full width: 3.2e-2 at 2 layers, 9.0e-2 at 4, 2.2e-1 at 16):
-# printed whole, gated at a cut of (layers, the kernels' launches a
-# forward) by the error's rms over the logits' rms, within BF16_VS_F32_RMS
-# for the forward against the decode and for the decode against fp32's
+# printed whole (the forward against the decode; the decode against the
+# fp32 decode of the same weights only at the cut: the whole-depth one,
+# 0.48 rms for mamba2, is in PERF.md), gated at a cut of (layers, the
+# kernels' launches a forward) by the error's rms over the logits' rms,
+# within BF16_VS_F32_RMS for the forward against the decode and for the
+# decode against fp32's
 # (max |dlogit|, an extreme over 1,024 positions, printed: zamba2's one
 # superblock 7.6e-2 at batch 1 on the CPU, 1.6e-1 at batch 4 on the card;
 # its rms 4.0e-2 and 3.9e-2)
@@ -1444,6 +1496,21 @@ def check_vlm_audio_shapes(rng) -> dict:
                 scaled=True),
             "flash_attention@hubert-xlarge": flash_prefill(rng, "hubert-xlarge", 16, 1, 80,
                                                            causal=False)}
+
+
+def check_dense_shapes(rng) -> dict:
+    """E at the dense family's two GQA shapes no other row holds, causal, in
+    fp32 and bf16 (the bf16 ones also to limits scaled to the output):
+    starcoder2-3b's 24 query heads over 2 KV heads (G 12) and qwen3-4b's 32
+    over 8 (G 4), head dim 128; G is the kernel's own index (``head /
+    group``), not folded away by the wrapper.  qwen2-72b's 64 over 8 is the
+    vlm's self shape (check_vlm_audio_shapes)."""
+    out = {}
+    for arch, kh, g in (("starcoder2-3b", 2, 12), ("qwen3-4b", 8, 4)):
+        out[f"flash_attention@{arch}"] = flash_prefill(rng, arch, kh, g, 128)
+        out[f"flash_attention_bf16@{arch}"] = flash_prefill(rng, arch, kh, g, 128, dtype=BF16,
+                                                            scaled=True)
+    return out
 
 
 def f_timings(rng) -> dict:
@@ -2492,6 +2559,20 @@ def flips_with_margins(label: str, ref, other) -> int:
     return len(where)
 
 
+def near_ties_only(arch: str, full, stepped, delta: float) -> bool:
+    """Whether each position where the forward's and the decode's argmax
+    differ is a near tie: the forward's top two logits within 2 max |dlogit|
+    (``delta``) of each other there, each printed with its margin."""
+    flips_with_margins(f"lm {arch} forward against decode", full, stepped)
+    top = full.float().topk(2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    flipped = full.argmax(-1) != stepped.argmax(-1)
+    ties = bool((margin[flipped] <= 2 * delta).all())
+    log(f"lm {arch}: {int(flipped.sum())} argmax flips, each at a near tie (top-2 margin "
+        f"within 2 max |dlogit| = {2 * delta:.3e}): {ties}")
+    return ties
+
+
 def leaf_sums(model, dtypes: dict = None) -> dict:
     """Each parameter's dtype (``dtypes[name]``, else its own) and the
     integer sum of its values' bits in that dtype: equal for equal values in
@@ -2556,11 +2637,12 @@ def run_lm_bf16(arch: str, counts: dict, *, n_layers: int = None, limit=BF16_DEC
     rms within ``rms_limit`` of the logits' (``None``: printed only), each
     argmax flip printed with its top-2 margin; the vlm's cross caches
     filled as run_vlm fills them; the moe family's forward at
-    MOE_FORWARD_CAPACITY, its decode at E / k; where fp32 fits on the card,
-    the decode against the fp32 decode of the same weights
-    (``bf16_vs_f32``); then, with ``serving``, ``serve(smoke=False)`` at
-    the same cut in bf16."""
+    MOE_FORWARD_CAPACITY, its decode at E / k; where fp32 fits on the card
+    (for a BF16_DEEP arch, at its cut), the decode against the fp32 decode
+    of the same weights (``bf16_vs_f32``); then, with ``serving``,
+    ``serve(smoke=False)`` at the same cut in bf16."""
     overrides, run_kernels, prefill, f32_check = BF16_RUNS[arch]
+    f32_check = f32_check and (n_layers is not None or arch not in BF16_DEEP)
     overrides = dict(overrides, **({"n_layers": n_layers} if n_layers else {}))
     kernels = kernels or run_kernels
     cfg = get_arch(arch).replace(dtype="bfloat16", **overrides)
@@ -2583,7 +2665,7 @@ def run_lm_bf16(arch: str, counts: dict, *, n_layers: int = None, limit=BF16_DEC
             f"run_app's wall; peak device memory {PEAKS[label]:.3f} GiB")
         expect_launches(f"{arch} bf16 prefill", launched, kernels)
         if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
-                torch.isfinite(logits.float()).all()):
+                torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} bf16 prefill: logits not finite or of the wrong shape")
         del logits
     moe = getattr(model, "moe_cfg", None)
@@ -2706,8 +2788,15 @@ def run_lm(shapes: dict) -> dict:
         # (a) prefill at B x T
         label = f"lm {arch} prefill {LM_BATCH}x{LM_PREFILL}"
         logits, launched = run_app(label, counts, lambda: prefill({"tokens": tokens}))
+        e_share, e_shape = "", f"flash_attention@{E_SHAPE_OF.get(arch, arch)}"
+        if e_shape in shapes:
+            e_ms = shapes[e_shape]["ms"]
+            e_share = (f"; E's share {cfg.n_layers} x {e_ms:.4f} ms / "
+                       f"{WALLS[label] * 1e3:.1f} ms = "
+                       f"{cfg.n_layers * e_ms / (WALLS[label] * 1e3):.1%}")
         log(f"lm {arch} prefill: {LM_BATCH * LM_PREFILL / WALLS[label]:.1f} tokens/s by "
-            "run_app's wall")
+            f"run_app's wall; peak device memory {PEAKS[label]:.3f} GiB, launches "
+            f"{json.dumps({k: v for k, v in launched.items() if v})}{e_share}")
         expect_launches(f"{arch} prefill", launched, kernels)
         if logits.shape != (LM_BATCH, LM_PREFILL, cfg.vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -2769,6 +2858,8 @@ def run_lm(shapes: dict) -> dict:
             delta, scale, same = logit_gap(
                 f"{arch} prefill, the {int(before_flip.sum())} positions before each row's "
                 "first routing difference", full[before_flip], stepped[before_flip])
+        if not same and arch in NEAR_TIE_ARCHS:
+            same = near_ties_only(arch, full, stepped, delta)
         if not delta <= 1e-3 * scale or not same:
             raise AssertionError(f"{arch}: prefill and decode disagree")
         if "ssd_scan" in kernels:
@@ -2804,7 +2895,10 @@ def run_lm(shapes: dict) -> dict:
 
         # (c) the serving loop (prefill by decode + greedy): at full width,
         # but the moe family's under smoke_config (its whole configs do not
-        # fit one card; its decode rate at full width is (b)'s)
+        # fit one card; its decode rate at full width is (b)'s); qwen2-72b's
+        # in bf16 only (run_lm_bf16)
+        if arch in BF16_SERVE_ONLY:
+            continue
         smoke = cfg.family == "moe"
         toks, _ = run_app(f"lm {arch} serve{' (smoke_config)' if smoke else ''}", counts,
                           lambda: serve(arch, smoke=smoke, batch=LM_BATCH, prompt_len=32,
@@ -3642,6 +3736,10 @@ def run_train() -> dict:
     card_vs_cpu(VLM, counts)
     for arch in (AUDIO, VLM):
         pallas_backward_refused(arch, {"attention_impl": "pallas"})
+    # (j) QKV bias's gradients on the card (starcoder2 also LayerNorm and
+    # the GELU FFN's biases)
+    for arch in ("starcoder2-3b", "qwen2-72b"):
+        card_vs_cpu(arch, counts)
     torch.cuda.empty_cache()
     return counts
 
@@ -3817,7 +3915,47 @@ def run_mesh() -> dict:
     return counts
 
 
+def report_exports() -> None:
+    """scripts/torch_make_report.py's ``--export-check`` and
+    ``--export-trace`` on the card, into build/report: the four analytics
+    apps armed with no finding and the seeded race caught (one read-write
+    and one write-write finding); the traced 2-thread logreg fit's 50 spans
+    in repro's four categories (15 store-op, 15 accumulate-round, 10
+    barrier-wait, 10 app-round)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_make_report.py")
+    spec = importlib.util.spec_from_file_location("torch_make_report", path)
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    out = os.path.join(build.BUILD_DIR, "report")
+    os.makedirs(out, exist_ok=True)
+    check_json, trace_json = os.path.join(out, "check.json"), os.path.join(out, "trace.json")
+    t0 = time.perf_counter()
+    report.main(["--export-check", check_json])
+    with open(check_json) as f:
+        found = json.load(f)
+    apps = {name: rep["count"] for name, rep in found["apps"].items()}
+    kinds = sorted(f["kind"] for f in found["seeded_race"]["findings"])
+    log(f"report --export-check on the card: {time.perf_counter() - t0:.2f} s; findings per "
+        f"app {apps}, the seeded race {kinds}")
+    if apps != {"logreg": 0, "kmeans": 0, "nmf": 0, "pagerank": 0} or kinds != [
+            "read-write", "write-write"]:
+        raise AssertionError(f"report --export-check: apps {apps}, seeded race {kinds}")
+    t0 = time.perf_counter()
+    report.main(["--export-trace", trace_json])
+    with open(trace_json) as f:
+        spans = collections.Counter(e["cat"] for e in json.load(f)["traceEvents"]
+                                    if e["ph"] == "X")
+    log(f"report --export-trace on the card: {time.perf_counter() - t0:.2f} s; spans "
+        f"{dict(spans)}")
+    if spans != {"store-op": 15, "accumulate-round": 15, "barrier-wait": 10, "app-round": 10}:
+        raise AssertionError(f"report --export-trace: spans {dict(spans)}")
+    if stepcheck.armed_count() or telemetry.armed_count():
+        raise AssertionError("report exports left a checker or a tracer armed")
+
+
 def main() -> None:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
     smi = card_info()
@@ -3848,6 +3986,7 @@ def main() -> None:
     shapes = check_zamba2_shapes(rng)
     shapes.update(check_moe_shapes(rng))
     shapes.update(check_vlm_audio_shapes(rng))
+    shapes.update(check_dense_shapes(rng))
     measured.update(check_receive(rng))
     measured["flash_attention_bf16"] = check_flash_bf16(rng)
     check_inputs(rng)
@@ -3867,6 +4006,7 @@ def main() -> None:
     counts = run_apps(keep)
     for name, n in run_armed(keep).items():
         counts[name] = counts.get(name, 0) + n
+    report_exports()
     for name, n in run_ft(keep).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in run_lm(shapes).items():
@@ -3876,6 +4016,7 @@ def main() -> None:
     for name, n in run_mesh().items():
         counts[name] = counts.get(name, 0) + n
     draw_summary()
+    log(f"chip_smoke.py wall {time.perf_counter() - started:.1f} s, the build included")
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
