@@ -67,15 +67,14 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
         n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
     """Lee–Seung updates through the Table-1 facade; backend-agnostic.
 
-    Returns ``(p, q, session)``.
+    A traced session records the job's ``job.setup`` (the draw of P0 and Q0,
+    ``nmf.init``, inside), ``session.join`` and ``job.teardown`` spans on the
+    calling thread.  Returns ``(p, q, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
                               threads_per_node=threads_per_node, mesh=mesh,
                               device=device)
     n, m = r.shape
-    p_full0, q0 = _init(n, m, k, seed)
-    Q = sess.def_global("Q", q0)
-    q_partials = sess.new_array("q_partials", (k * m + k * k,))
 
     def thread_proc(ctx, r_loc, p_loc):
         def step(p):                        # thread-local P rides in the carry
@@ -91,9 +90,19 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
             return p
         return ctx.iterate(step, p_loc, iters)
 
-    ps = sess.run(thread_proc, data=(r, p_full0))
-    p_full = torch.cat([p.cpu() for p in ps]).numpy()
-    return p_full, Q.get().cpu().numpy(), sess
+    with sess.span("job", "job.setup"):
+        with sess.span("job", "nmf.init"):
+            p_full0, q0 = _init(n, m, k, seed)
+        Q = sess.def_global("Q", q0)
+        q_partials = sess.new_array("q_partials", (k * m + k * k,))
+        with sess.span("job", "session.spawn"):
+            sess.spawn(thread_proc, data=(r, p_full0))
+    with sess.span("job", "session.join"):
+        ps = sess.join()
+    with sess.span("job", "job.teardown"):
+        p_full = torch.cat([p.cpu() for p in ps]).numpy()
+        q = Q.get().cpu().numpy()
+    return p_full, q, sess
 
 
 # ---------------------------------------------------------------------------

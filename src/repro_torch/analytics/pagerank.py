@@ -68,16 +68,12 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
     ``mode="auto"`` ships (index, value) pairs only on rounds where every
     thread's credit vector compresses losslessly under the budget ``k``
     (default ~V/4).  ``k`` becomes the credits ref's declared budget.
-    Returns ``(ranks, session)``.
+    A traced session records the job's ``job.setup``, ``session.join`` and
+    ``job.teardown`` spans on the calling thread.  Returns ``(ranks, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
                               threads_per_node=threads_per_node, mesh=mesh,
                               device=device)
-    edges_t = to_tensor(edges, sess.device)
-    out_deg = _out_degree(edges_t[:, 0].long(), n_vertices)
-    ranks = sess.def_global(
-        "ranks", torch.full((n_vertices,), 1.0 / n_vertices, device=sess.device))
-    credits = sess.new_array("credits", (n_vertices,), sparse_k=k)
 
     def thread_proc(ctx, edges_loc, deg):
         src, dst = edges_loc[:, 0].long(), edges_loc[:, 1].long()
@@ -91,8 +87,19 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
         ctx.iterate(step, None, iters)
         return None
 
-    sess.run(thread_proc, data=(edges_t,), broadcast=(out_deg,))
-    return ranks.get().cpu().numpy(), sess
+    with sess.span("job", "job.setup"):
+        edges_t = to_tensor(edges, sess.device)
+        out_deg = _out_degree(edges_t[:, 0].long(), n_vertices)
+        ranks = sess.def_global(
+            "ranks", torch.full((n_vertices,), 1.0 / n_vertices, device=sess.device))
+        credits = sess.new_array("credits", (n_vertices,), sparse_k=k)
+        with sess.span("job", "session.spawn"):
+            sess.spawn(thread_proc, data=(edges_t,), broadcast=(out_deg,))
+    with sess.span("job", "session.join"):
+        sess.join()
+    with sess.span("job", "job.teardown"):
+        out = ranks.get().cpu().numpy()
+    return out, sess
 
 
 # ---------------------------------------------------------------------------

@@ -130,6 +130,7 @@ def accumulate(
     outer_axis=None,
     k: Optional[int] = None,
     with_branch: bool = False,
+    tracer: telemetry.Tracer = telemetry.NULL_TRACER,
 ):
     """Sum `x` over mesh axis(es); every position receives the full result.
 
@@ -139,7 +140,9 @@ def accumulate(
 
     ``with_branch=True`` (``auto`` mode only) additionally returns the
     globally-agreed branch decision as a bool — what the SPMD session
-    charges wire traffic by.
+    charges wire traffic by.  ``tracer`` times that decision's device sync
+    (a ``device-sync`` span, ``accumulate.decide``) on the position that
+    reads it.
     """
     mode = AccumMode(mode)
     if with_branch and mode != AccumMode.AUTO:
@@ -178,8 +181,10 @@ def accumulate(
             k = default_auto_k(n)
         # the paper's rule must agree across positions: decide on the
         # *global* benefit (all_gather of one flag each), read once
-        use_sparse = all_gather_reduce(sparse_beneficial(x, k), axis,
-                                       lambda oks: bool(oks.all()))
+        def decide(oks):
+            with telemetry.guarded_span(tracer, "device-sync", "accumulate.decide"):
+                return bool(oks.all())
+        use_sparse = all_gather_reduce(sparse_beneficial(x, k), axis, decide)
         if use_sparse:
             total = accumulate(x, axis, AccumMode.SPARSE, k=k)
         else:
@@ -307,10 +312,10 @@ class DAddAccumulator:
                 # pairs only when every contribution is losslessly
                 # compressible AND cheaper: one call decides the whole round,
                 # a single device sync instead of N small ones
-                all_ok = bool(sparse_beneficial_batch(flats, k, self.block))
+                with telemetry.guarded_span(trc, "device-sync", "accumulate.decide"):
+                    all_ok = bool(sparse_beneficial_batch(flats, k, self.block))
                 mode = AccumMode.SPARSE if all_ok else AccumMode.REDUCE_SCATTER
             if mode == AccumMode.SPARSE:
-                tc = time.perf_counter() if tracing else 0.0
                 if self.fused:
                     # one fused sparsify→scatter-add launch over the stacked
                     # round; the logical pair count is the static capacity
@@ -327,9 +332,6 @@ class DAddAccumulator:
                                     torch.stack([p.vals for p in pairs]),
                                     vec_len).reshape(shape)
                     self.last_pair_counts = [p.num_pairs for p in pairs]
-                if tracing:
-                    trc.observe("accumulate.compress",
-                                (time.perf_counter() - tc) * 1e6)
                 self.bytes_transferred += (
                     sum(2 * c for c in self.last_pair_counts) + vec_len)
             else:

@@ -236,10 +236,7 @@ class HostWorkerCtx(WorkerCtx):
         return self._backend.run_barrier.enter(timeout)
 
     def span(self, name: str, **args):
-        trc = self._session.tracer
-        if telemetry.TRACING and trc.enabled:
-            return trc.span("app-round", name, **args)
-        return telemetry.NULL_SPAN
+        return self._session.span("app-round", name, **args)
 
     def fori(self, step: Callable, carry, iters: int):
         for i in range(int(iters)):
@@ -332,7 +329,8 @@ class SpmdWorkerCtx(WorkerCtx):
         took_sparse = False
         if mode == AccumMode.AUTO:
             total, took_sparse = spmd_accumulate(vec, self._backend.axis, mode,
-                                                 k=k, with_branch=True)
+                                                 k=k, with_branch=True,
+                                                 tracer=self._session.tracer)
         else:
             total = spmd_accumulate(vec, self._backend.axis, mode, k=k)
         if not local.ndim:
@@ -893,6 +891,13 @@ class Session:
             ck.lint_spawn(self, thread_proc, data, broadcast)
             ck.on_spawn(self.backend.n_threads)
         self.backend.spawn(self, thread_proc, data, broadcast)
+
+    def span(self, cat: str, name: str, **args):
+        """A span of category ``cat`` on the calling thread's timeline while
+        the session's tracer is armed, else the shared no-op span.  On a
+        thread ``torch.profiler`` records, it is also a profiler range of the
+        same name (:mod:`~repro_torch.core.telemetry`)."""
+        return telemetry.guarded_span(self.tracer, cat, name, **args)
 
     def join(self, timeout: Optional[float] = None) -> List[Any]:
         """Join all threads; returns per-tid results."""

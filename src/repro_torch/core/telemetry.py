@@ -13,10 +13,18 @@ through every hot path —
 * **sync** (`DBarrier` / `DSemaphore` / `SSPClock`): per-thread entry→release
   wait spans, queue depth, clock skew and stall time;
 * **accumulator rounds** (`DAddAccumulator`): per-thread round spans, barrier
-  wait, compress time, pair counts and the dense-vs-sparse branch taken;
+  wait, pair counts and the dense-vs-sparse branch taken;
 * **SPMD backend**: per-``lax.scan`` trip accounting plus trace/compile/
   execute timing — device code cannot emit host events mid-program, so
-  collective counters settle at ``join()`` exactly like AUTO traffic does.
+  collective counters settle at ``join()`` exactly like AUTO traffic does;
+* **jobs** (category ``job``): an app's ``fit`` marks its set-up
+  (``job.setup``, with ``session.spawn`` and the app's own draws inside),
+  ``session.join`` and ``job.teardown`` (the copies back to the host) on
+  the thread that calls it;
+* **device syncs** (category ``device-sync``): each host read of a device
+  value on the round path, such as the AUTO rule's decision
+  (``accumulate.decide``), which blocks until the device has run every
+  kernel queued before it.
 
 Two access levels:
 
@@ -31,6 +39,23 @@ Two access levels:
   first — when no tracer is armed the added cost is one module-attribute
   load and a falsy branch: no dict, no event, no timestamp is allocated.
 
+One clock with ``torch.profiler``: a span opened with :meth:`Tracer.span`
+also enters a profiler range of the same name when the tracer is armed and
+the profiler records the calling thread's host ops
+(``torch._C._autograd._profiler_enabled()``: true on the thread that
+started the profiler, false on a thread started inside its window, whose
+spans so never become ranges).  The range is a function-scoped record
+(``torch._C._profiler._RecordFunctionFast``), not the user-scoped
+``torch.profiler.record_function``: on CUDA the profiler turns a user range
+into a device-side annotation event from the first to the last operation
+launched inside it, which a reader of device events would count as device
+time; a function-scoped range is a host event only.  The profiler's
+idle-gap labels then carry the program's own span names.  Every span, a worker thread's included, is
+placed against the profiler's events by the tracer's anchor,
+:attr:`Tracer.epoch_unix_ns`: the Unix clock, which the profiler's host
+events use too, read beside the ``perf_counter`` epoch
+(:meth:`Tracer.unix_ns`; ``otherData.epoch_unix_ns`` in the Chrome trace).
+
 The recording side is intentionally dumb — append-only event list (bounded,
 drops counted), flat counters, fixed-size-sample histograms — so one lock
 suffices and recording never calls back into store/sync code (the tracer
@@ -43,6 +68,8 @@ import json
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Module-level fast path: TRACING is True iff at least one Tracer is armed.
@@ -208,21 +235,31 @@ ALWAYS_RECORD = frozenset({"migration", "anomaly", "spmd", "lifecycle"})
 
 
 class _SpanCM:
-    """Context-manager span: records one complete ('X') event on exit."""
+    """Context-manager span: records one complete ('X') event on exit, and
+    encloses a host-only profiler range of the same name where the tracer is
+    armed and the profiler records this thread (the module docstring's range
+    rule)."""
 
-    __slots__ = ("_trc", "cat", "name", "args", "t0")
+    __slots__ = ("_trc", "cat", "name", "args", "t0", "_range")
 
     def __init__(self, trc: "Tracer", cat: str, name: str, args: Optional[dict]):
         self._trc = trc
         self.cat = cat
         self.name = name
         self.args = args
+        self._range = None
 
     def __enter__(self) -> "_SpanCM":
         self.t0 = time.perf_counter()
+        if self._trc.enabled and torch._C._autograd._profiler_enabled():
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         self._trc.add_span(self.cat, self.name, self.t0, time.perf_counter(),
                            self.args)
 
@@ -258,7 +295,18 @@ class Tracer:
     ``sync``                  semaphore acquire waits, SSP stalls
     ``app-round``             workload round boundaries via ``ctx.span(...)``
     ``spmd``                  SPMD trace / compile+execute / lower timing
+    ``job``                   an app's ``job.setup`` (``session.spawn`` and
+                              the app's draws, such as ``nmf.init``, inside),
+                              ``session.join`` and ``job.teardown``, on the
+                              thread that calls ``fit``
+    ``device-sync``           a host read of a device value on the round path
+                              (``accumulate.decide``: the AUTO rule's branch)
     ========================  ====================================================
+
+    A span opened with :meth:`span` is also a host-only ``torch.profiler``
+    range when the profiler records the calling thread (the module
+    docstring's range rule); any span is placed on the profiler's clock by
+    :attr:`epoch_unix_ns` (:meth:`unix_ns`).
 
     Recording methods are cheap but not free: callers on hot paths must guard
     with ``telemetry.TRACING and tracer.enabled`` (every built-in call site
@@ -268,7 +316,9 @@ class Tracer:
     def __init__(self, *, enabled: bool = False, max_events: int = 200_000):
         self.max_events = int(max_events)
         self._lock = threading.Lock()
+        # the anchor: the Unix clock (torch.profiler's) beside the epoch
         self._epoch = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
         self._events: List[dict] = []
         self.dropped_events = 0
         # step.obs flight-recorder hooks.  `ring` (a RingSink) additionally
@@ -332,6 +382,13 @@ class Tracer:
 
     def now(self) -> float:
         return time.perf_counter()
+
+    def unix_ns(self, ts_us: float) -> int:
+        """An event's ``ts`` (µs after this tracer's epoch) on the Unix clock,
+        in ns: the clock of ``torch.profiler``'s host events, so that
+        ``unix_ns(ts) - trace_start_ns()`` places the event in a profiled
+        window, whichever thread recorded it."""
+        return self.epoch_unix_ns + round(ts_us * 1e3)
 
     def add_span(self, cat: str, name: str, t0: float, t1: float,
                  args: Optional[dict] = None) -> None:
@@ -517,7 +574,8 @@ class Tracer:
                          "tid": tid, "args": {"name": label}})
         return {"traceEvents": meta + events, "displayTimeUnit": "ms",
                 "otherData": {"producer": "step.trace",
-                              "dropped_events": self.dropped_events}}
+                              "dropped_events": self.dropped_events,
+                              "epoch_unix_ns": self.epoch_unix_ns}}
 
     def export(self, path: str) -> str:
         """Write the Chrome-trace JSON to ``path`` (load it in Perfetto or
@@ -535,6 +593,14 @@ class Tracer:
 #: Never enable this one directly — arm a fresh ``Tracer`` (or pass
 #: ``Session(trace=True)``) so disabling it is scoped to your run.
 NULL_TRACER = Tracer(enabled=False)
+
+
+def guarded_span(tracer: Tracer, cat: str, name: str, **args):
+    """``tracer.span(cat, name, **args)`` where ``tracer`` is armed, else
+    :data:`NULL_SPAN`: the one guarded way to open a span."""
+    if TRACING and tracer.enabled:
+        return tracer.span(cat, name, **args)
+    return NULL_SPAN
 
 
 def as_tracer(trace) -> Tracer:
