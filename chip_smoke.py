@@ -68,8 +68,13 @@ Phases, in order; any failure raises and the run exits non-zero:
              (check_dense_shapes).
 4. apps    — the host Session (2 nodes x 2 threads, device left at its
              default) at realistic sizes: pagerank on a LiveJournal-scale
-             graph (AUTO, SPARSE fused, SPARSE unfused; and one thread's
-             fp64 credit scatter timed beside sparse_scatter_add in fp32),
+             graph (AUTO, SPARSE fused, SPARSE unfused; before them, each
+             thread's slice binned by bin_edges and its credits summed by
+             binned_credits, held to pagerank._credits within one fp32 ulp
+             and timed beside it, thread 0's slice, with powerlaw_graph's
+             hub, the kernels line's pagerank_credits row (check_credits);
+             and that slice's fp64 credit scatter timed beside
+             sparse_scatter_add in fp32),
              kmeans on the Covertype shape with the kernel (plus four
              uncounted runs from the default init, whose spread is printed),
              logreg with sparse_k fused and unfused, nmf on Netflix's 17,770
@@ -81,8 +86,11 @@ Phases, in order; any failure raises and the run exits non-zero:
              multiple of 4, and the host runs it is held against given the
              same edges), kmeans with the kernel, logreg SPARSE and nmf
              reduce_scatter, each held to the app tolerance against its host
-             run, with the same wire traffic and its launches asserted.  accumulate_blocked is timed per
-             call inside the pagerank AUTO run.  Launch counters are
+             run, with the same wire traffic and its launches asserted
+             (every pagerank run: a set-up pass a thread, one histogram and
+             two scatters, and the credit kernel a thread and round).
+             accumulate_blocked is timed per call inside the pagerank AUTO
+             run.  Launch counters are
              zeroed just before each run and read just after; every kernel
              must have been launched, the counts each run must give are
              asserted.  A small run of each app is also held against its
@@ -96,7 +104,8 @@ Phases, in order; any failure raises and the run exits non-zero:
              the trimmed edges (C, H), logreg sparse fused (A) and unfused (B,
              H), logreg sparse through the SPMD backend (B, H), kmeans with
              the kernel (D, plus one launch a thread for the lint's dry run
-             of the round body) and nmf AUTO (G).  Each armed run must find
+             of the round body; pagerank likewise its set-up pass and credit
+             kernel once a thread) and nmf AUTO (G).  Each armed run must find
              nothing, put the same elements on the wire as the unarmed run,
              agree with it to the app tolerance and launch what the code
              says; both walls and the overhead are printed, and nothing may
@@ -341,6 +350,7 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
+from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem_bytes  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.sparse_update.kernel import sparse_scatter_add  # noqa: E402
@@ -412,6 +422,8 @@ KERNELS = {
                            "src/repro/kernels/accumulate/kernel.py:23"),
     "sparse_scatter_add": ("src/repro_torch/csrc/scatter_add.cu",
                            "src/repro/kernels/sparse_update/kernel.py:39"),
+    "pagerank_credits": ("src/repro_torch/csrc/pagerank_credits.cu",
+                         "no TPU kernel: XLA's scatter, src/repro/analytics/pagerank.py:30"),
 }
 
 # qwen2-72b (72.7 B parameters, 291 GB in fp32) cut in whole layers: the most
@@ -1637,35 +1649,73 @@ def small_reference_checks() -> None:
         "scatter repeats to within one fp32 ulp")
 
 
-def time_credits(edges) -> None:
-    """One thread's share of a pagerank round at LiveJournal scale: its
-    quarter of the edges through pagerank._credits (fp64 index_add_, then
-    one rounding to fp32), the fp64 index_add_ alone, and the same (dst, w)
-    in fp32 through index_add_ and through sparse_scatter_add.  Timing only:
-    pagerank keeps its fp64 sum, and these launches are not counted."""
+def check_credits(edges) -> dict:
+    """pagerank's binned credit path at LiveJournal scale, on each of the
+    four threads' slices as the host backend hands them out: bin_edges'
+    set-up pass (host clock, ended by a synchronize) and binned_credits
+    held against the plain pagerank._credits it replaces on the card, to one
+    fp32 ulp (the fp64 adds run in another order), both timed by CUDA
+    events; the bound is the round's streamed bytes (8 B an edge, w read
+    and the credits written: 8 B a vertex).  Thread 0's slice holds
+    powerlaw_graph's hub (~44% of its edges into one vertex, whose bin the
+    plan splits across CTAs): its row is the kernels line's.  Beside it, on
+    thread 0's slice, the fp64 index_add_ alone and the same (dst, w) in
+    fp32 through index_add_ and through sparse_scatter_add (timing only).
+    None of these launches is counted."""
     dev = torch.device("cuda")
-    lo, hi = partition_rows(edges.shape[0], 0, N_THREADS)
-    e = torch.from_numpy(edges[lo:hi]).to(dev).long()
-    src, dst = e[:, 0], e[:, 1]
+    ulp = torch.finfo(torch.float32).eps
     deg = pagerank._out_degree(torch.from_numpy(edges[:, 0]).to(dev).long(), LJ_VERTICES)
-    ranks = torch.full((LJ_VERTICES,), 1.0 / LJ_VERTICES, device=dev)
-    w32 = ranks[src] / deg[src]
-    w64 = w32.double()
-    f64 = torch.zeros(LJ_VERTICES, dtype=torch.float64, device=dev).index_add_(0, dst, w64)
-    kern = sparse_scatter_add(dst, w32, LJ_VERTICES)
-    top = int(torch.bincount(dst, minlength=LJ_VERTICES).max())
-    times = {
-        "credits (fp64 index_add_, whole function)": time_ms(
-            lambda: pagerank._credits(src, dst, ranks, deg, LJ_VERTICES), 10),
-        "fp64 index_add_": time_ms(lambda: torch.zeros(
-            LJ_VERTICES, dtype=torch.float64, device=dev).index_add_(0, dst, w64), 10),
-        "fp32 index_add_": time_ms(lambda: torch.zeros(
-            LJ_VERTICES, device=dev).index_add_(0, dst, w32), 10),
-        "fp32 sparse_scatter_add": time_ms(
-            lambda: sparse_scatter_add(dst, w32, LJ_VERTICES), 10)}
-    rel = float(((kern.double() - f64).abs() / f64.abs().clamp_min(1e-30)).max())
-    log(f"pagerank credits, one thread ({e.shape[0]} edges, {top} into the most popular "
-        f"vertex), ms: {json.dumps(times)}; sparse_scatter_add vs fp64 max rel diff {rel:.3e}")
+    ranks = (torch.rand(LJ_VERTICES, generator=torch.Generator().manual_seed(SEED)) + 0.5)
+    ranks = (ranks / LJ_VERTICES).to(dev)
+    w = ranks / deg
+    bin_edges(torch.from_numpy(edges[:1024]).to(dev), LJ_VERTICES)   # the library's load
+    per_thread = {}
+    for tid in range(N_THREADS):
+        lo, hi = partition_rows(edges.shape[0], tid, N_THREADS)
+        e = torch.from_numpy(edges[lo:hi]).to(dev)
+        before = e.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        binned = bin_edges(e, LJ_VERTICES)
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(e, before):
+            raise AssertionError(f"pagerank_credits: thread {tid}'s slice changed by the binning")
+        src, dst = e[:, 0].long(), e[:, 1].long()
+        want = pagerank._credits(src, dst, ranks, deg, LJ_VERTICES)
+        got = binned_credits(binned, w)
+        torch.testing.assert_close(got, want, rtol=ulp, atol=0.0,
+                                   msg=lambda m: f"pagerank_credits, thread {tid}: {m}")
+        top = int(torch.bincount(dst, minlength=LJ_VERTICES).max())
+        t, by = bound_ms(8 * e.shape[0] + 8 * LJ_VERTICES)
+        per_thread[tid] = dict(
+            shape=f"thread {tid}'s slice: {e.shape[0]} int32 edges ({top} into one vertex; "
+                  f"{binned.plan.n_split} split bins, {binned.plan.items.shape[0]} items), "
+                  f"V {LJ_VERTICES}",
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(lambda: binned_credits(binned, w), 10),
+            plain_ms=time_ms(lambda: pagerank._credits(src, dst, ranks, deg, LJ_VERTICES), 5),
+            setup_ms=setup_ms, bound_ms=t, bound_by=by, library_ms=None)
+        if tid == 0:
+            w32 = w[src]
+            w64 = w32.double()
+            times = {
+                "fp64 index_add_": time_ms(lambda: torch.zeros(
+                    LJ_VERTICES, dtype=torch.float64, device=dev).index_add_(0, dst, w64), 10),
+                "fp32 index_add_": time_ms(lambda: torch.zeros(
+                    LJ_VERTICES, device=dev).index_add_(0, dst, w32), 10),
+                "fp32 sparse_scatter_add": time_ms(
+                    lambda: sparse_scatter_add(dst, w32, LJ_VERTICES), 10)}
+            kern = sparse_scatter_add(dst, w32, LJ_VERTICES)
+            rel = float(((kern.double() - want.double()).abs()
+                         / want.double().abs().clamp_min(1e-30)).max())
+            log(f"pagerank credits, thread 0 (the hub's slice), ms: {json.dumps(times)}; "
+                f"sparse_scatter_add vs fp64 max rel diff {rel:.3e}")
+            del w32, w64, kern
+        del e, before, binned, src, dst, want, got
+    log("pagerank_credits per thread slice (binned kernel vs plain _credits, ms; set-up "
+        "pass ms, host clock):", json.dumps(per_thread))
+    return per_thread[0]
 
 
 def session(fused: bool = True) -> Session:
@@ -1687,6 +1737,15 @@ NO_ACCUMULATE_KERNEL = {"fused_topk_scatter": 0, "topk_compress_argmax": 0,
                         "accumulate_blocked": 0}
 
 
+def pagerank_launches(threads: int, rounds: int = ITERS) -> dict:
+    """The binned credit path's launches in a pagerank job on the card at
+    LiveJournal scale: each thread's set-up pass (a slice of ~17 M edges is
+    one segment; its 592 bins outnumber a bucket's 128, so it scatters
+    twice) and the round's kernel once a thread and round."""
+    return {"pagerank_bin_histogram": threads, "pagerank_bin_scatter": 2 * threads,
+            "pagerank_credits": threads * rounds}
+
+
 def run_pagerank_spmd(edges, counts: dict) -> None:
     """pagerank AUTO and SPARSE (k = V/4) through the SPMD backend, each
     against a host run of the same edges: the SPMD split is even, so the
@@ -1700,7 +1759,8 @@ def run_pagerank_spmd(edges, counts: dict) -> None:
     (r_s, s_s), launched = run_app("pagerank auto spmd", counts, lambda: pagerank.fit(
         trimmed, LJ_VERTICES, iters=ITERS, mode="auto", session=spmd_session()))
     # every round at this scale goes dense: no kernel, the dense (N+1)·V each round
-    expect_launches("pagerank auto spmd", launched, NO_ACCUMULATE_KERNEL)
+    expect_launches("pagerank auto spmd", launched,
+                    {**NO_ACCUMULATE_KERNEL, **pagerank_launches(SPMD_POSITIONS)})
     if s_s.wire_traffic() != ITERS * (SPMD_POSITIONS + 1) * LJ_VERTICES:
         raise AssertionError(f"pagerank auto spmd: wire {s_s.wire_traffic()} is not "
                              "every round dense")
@@ -1714,7 +1774,8 @@ def run_pagerank_spmd(edges, counts: dict) -> None:
     # one compression per position and one densify for the round
     expect_launches("pagerank sparse spmd", launched,
                     {"topk_compress_bitonic": ITERS * SPMD_POSITIONS,
-                     "sparse_scatter_add": ITERS, "fused_topk_scatter": 0})
+                     "sparse_scatter_add": ITERS, "fused_topk_scatter": 0,
+                     **pagerank_launches(SPMD_POSITIONS)})
     same_wire("pagerank sparse spmd", s_ss, s_hs)
     close(r_ss, r_hs, "pagerank sparse spmd vs host")
     for r in (r_s, r_ss):
@@ -1757,7 +1818,7 @@ def run_apps(keep: dict) -> dict:
     edges = powerlaw_graph(LJ_VERTICES, LJ_DEGREE, seed=SEED)
     log(f"pagerank graph: {LJ_VERTICES} vertices, {edges.shape[0]} edges "
         f"(made in {time.perf_counter() - t0:.1f} s)")
-    time_credits(edges)
+    keep["pagerank_credits"] = check_credits(edges)
     traced = Session(n_nodes=N_NODES, threads_per_node=THREADS_PER_NODE, trace=True)
     g_calls: list = []
     restore = time_g_in_pagerank(g_calls)
@@ -1779,7 +1840,8 @@ def run_apps(keep: dict) -> dict:
         raise AssertionError(f"pagerank auto: {len(g_calls)} accumulate_blocked calls timed")
     # every round at this scale takes the dense branch: one fold each
     expect_launches("pagerank auto", launched, {"accumulate_blocked": ITERS,
-                                                "fused_topk_scatter": 0})
+                                                "fused_topk_scatter": 0,
+                                                **pagerank_launches(N_THREADS)})
     if len(branches) != ITERS:
         raise AssertionError(f"pagerank auto: {len(branches)} rounds traced")
     r_ref = pagerank.fit_reference(edges, LJ_VERTICES, ITERS)
@@ -1791,14 +1853,15 @@ def run_apps(keep: dict) -> dict:
     (r_f, s_f), launched = run_app("pagerank sparse fused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(True)))
     expect_launches("pagerank sparse fused", launched, {"fused_topk_scatter": ITERS,
-                                                        "sparse_scatter_add": 0})
+                                                        "sparse_scatter_add": 0,
+                                                        **pagerank_launches(N_THREADS)})
     (r_u, s_u), launched = run_app("pagerank sparse unfused", counts, lambda: pagerank.fit(
         edges, LJ_VERTICES, iters=ITERS, mode="sparse", k=k, session=session(False)))
     # unfused: one compression per thread and one scatter launch for all
     # the threads' pairs each round
     expect_launches("pagerank sparse unfused", launched,
                     {"topk_compress_bitonic": ITERS * N_THREADS, "fused_topk_scatter": 0,
-                     "sparse_scatter_add": ITERS})
+                     "sparse_scatter_add": ITERS, **pagerank_launches(N_THREADS)})
     close(r_f, r_u, "pagerank sparse fused vs unfused")
     if s_f.wire_traffic() != s_u.wire_traffic():
         raise AssertionError("pagerank: fused and unfused wire traffic differ")
@@ -2060,16 +2123,19 @@ def run_armed(keep: dict) -> dict:
     data.  Launches per armed run, from the code: the accumulator's kernels
     as unarmed (the lint's dry run ends each accumulate at LintCtx, which
     launches nothing), plus what the dry run's one pass through each
-    thread's round body launches itself: kmeans' assignment (D) once a
-    thread; the other bodies launch no counted kernel."""
+    thread's proc launches itself: kmeans' assignment (D) once a thread;
+    pagerank's set-up pass and its credit kernel once a thread (the dry run
+    runs on the real slices on the card); logreg's and nmf's bodies launch
+    no counted kernel."""
     counts: dict = {}
     edges = keep["edges"]           # phase ft runs pagerank on them again
     k = LJ_VERTICES // 4
     page = armed_pair(
         "pagerank auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
         lambda s: pagerank.fit(edges, LJ_VERTICES, iters=ITERS, mode="auto", session=s)[0],
-        {"accumulate_blocked": ITERS, "fused_topk_scatter": 0},
-        lambda a, u: close(a, u, "pagerank auto armed vs unarmed"), watch=True)
+        {"accumulate_blocked": ITERS, "fused_topk_scatter": 0, **pagerank_launches(N_THREADS)},
+        lambda a, u: close(a, u, "pagerank auto armed vs unarmed"), watch=True,
+        lint_extra=pagerank_launches(N_THREADS, rounds=1))
     lines = page.splitlines()
     log(f"armed pagerank auto: OpenMetrics page, {len(lines)} lines; head: "
         f"{json.dumps(lines[:12])}")
@@ -2083,8 +2149,9 @@ def run_armed(keep: dict) -> dict:
         lambda s: pagerank.fit(trimmed, LJ_VERTICES, iters=ITERS, mode="sparse", k=k,
                                session=s)[0],
         {"topk_compress_bitonic": ITERS * N_THREADS, "sparse_scatter_add": ITERS,
-         "fused_topk_scatter": 0},
-        lambda a, u: close(a, u, "pagerank sparse unfused armed vs unarmed"))
+         "fused_topk_scatter": 0, **pagerank_launches(N_THREADS)},
+        lambda a, u: close(a, u, "pagerank sparse unfused armed vs unarmed"),
+        lint_extra=pagerank_launches(N_THREADS, rounds=1))
     del trimmed
 
     x, y = keep.pop("logreg")
@@ -2357,7 +2424,8 @@ def tiered_pagerank(edges, untiered, counts: dict):
     finally:
         wd.stop()
     expect_launches("pagerank auto tiered", launched, {"accumulate_blocked": ITERS,
-                                                       "fused_topk_scatter": 0})
+                                                       "fused_topk_scatter": 0,
+                                                       **pagerank_launches(N_THREADS)})
     if wd.errors or wd.anomalies:
         raise AssertionError(f"pagerank tiered: watchdog {wd.errors[:2]} "
                              f"{[a.kind for a in wd.anomalies]}")
@@ -3954,6 +4022,13 @@ def report_exports() -> None:
         raise AssertionError("report exports left a checker or a tracer armed")
 
 
+def log_kernel(name: str, m: dict) -> None:
+    log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+        f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "
+        f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "
+        f"graph replay {m.get('device_ms')} ms, library's {m.get('library_device_ms')} ms")
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3996,14 +4071,13 @@ def main() -> None:
     f_timings(rng)
     a_timings(rng)
     for name, m in {**measured, **shapes}.items():
-        log(f"kernel {name} [{m['shape']}]: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-            f"bound {m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}), "
-            f"library {m['library_ms']} ms, max_abs_err {m['max_abs_err']}; device time by "
-            f"graph replay {m.get('device_ms')} ms, library's {m.get('library_device_ms')} ms")
+        log_kernel(name, m)
 
     count_draws()
     keep: dict = {}
     counts = run_apps(keep)
+    measured["pagerank_credits"] = keep.pop("pagerank_credits")
+    log_kernel("pagerank_credits", measured["pagerank_credits"])
     for name, n in run_armed(keep).items():
         counts[name] = counts.get(name, 0) + n
     report_exports()

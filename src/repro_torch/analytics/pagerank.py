@@ -19,6 +19,17 @@ package to the app tolerance.  (A sort-based
 ``index_put_(accumulate=True)`` repeats to the bit but adds each vertex's
 duplicates serially, far too slow where a few vertices take millions of
 edges.)
+
+On the card each thread sorts its slice once a job into an int32 copy
+grouped by destination bin (:func:`~repro_torch.kernels.pagerank_credits.ops.bin_edges`)
+and each round sums its credits in one launch, in fp64 on chip, from one
+gather of ``ranks / out_deg`` an edge (``binned_credits``): no E-sized
+temporary, and an atomic in device memory only where a bin split across
+CTAs merges its pieces.  A CPU slice takes
+:func:`_credits` over its edges as they are, the plain version the kernel
+is held against.  A traced session counts the path once per thread and
+round (``pagerank.credit_path.binned`` or ``.plain``) and each job's split
+bins (``pagerank.credit_bins.split``).
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from repro_torch.core import AccumMode, Session
 from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits
 
 DAMPING = 0.85
 
@@ -76,12 +88,24 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
                               device=device)
 
     def thread_proc(ctx, edges_loc, deg):
-        src, dst = edges_loc[:, 0].long(), edges_loc[:, 1].long()
+        if edges_loc.is_cuda:
+            binned = bin_edges(edges_loc.contiguous(), n_vertices)
+            ctx.count("pagerank.credit_bins.split", binned.plan.n_split)
+            path = "pagerank.credit_path.binned"
+
+            def local_credits(r):
+                return binned_credits(binned, r / deg)
+        else:
+            src, dst = edges_loc[:, 0].long(), edges_loc[:, 1].long()
+            path = "pagerank.credit_path.plain"
+
+            def local_credits(r):
+                return _credits(src, dst, r, deg, n_vertices)
 
         def step(_):                       # the shared ranks carry the state
             with ctx.span("pagerank.round"):
-                total = credits.accumulate(
-                    _credits(src, dst, ranks.get(), deg, n_vertices), mode=mode)
+                ctx.count(path)
+                total = credits.accumulate(local_credits(ranks.get()), mode=mode)
                 ranks.set((1 - DAMPING) / n_vertices + DAMPING * total)
             return _
         ctx.iterate(step, None, iters)

@@ -194,6 +194,14 @@ class WorkerCtx:
         timeline — the hook the analytics apps use to mark one round."""
         return telemetry.NULL_SPAN
 
+    def count(self, name: str, amount: float = 1) -> None:
+        """Add ``amount`` to the session tracer's counter ``name`` where it
+        is armed: the apps' per-thread counts, exact under concurrent
+        threads."""
+        trc = self._session.tracer
+        if telemetry.TRACING and trc.enabled:
+            trc.count_exact(name, amount)
+
     # -- iteration engine ----------------------------------------------------
 
     def iterate(self, step: Callable, carry, iters: int):
@@ -277,11 +285,12 @@ class SpmdWorkerCtx(WorkerCtx):
     collective call, not once per position."""
 
     def __init__(self, session: "Session", backend: "SpmdBackend", tid: int,
-                 values: Dict[str, Any], leader: bool):
+                 values: Dict[str, Any], leader: bool, on_axis: bool):
         super().__init__(session, tid, backend.n_threads, tid)
         self._backend = backend
         self.values = values
         self._leader = leader
+        self._on_axis = on_axis  # the position whose result stands for its tid
         self._accum_repeat = 1   # the enclosing loops' trip counts, multiplied
         self._first_trip = True  # in the first trip of every enclosing loop
 
@@ -306,6 +315,12 @@ class SpmdWorkerCtx(WorkerCtx):
         finally:
             self._accum_repeat, self._first_trip = outer_repeat, outer_first
         return carry
+
+    def count(self, name: str, amount: float = 1) -> None:
+        """Counted once per thread: by the positions on the data axis (the
+        positions off it repeat a thread's work)."""
+        if self._on_axis:
+            super().count(name, amount)
 
     # -- ref-op routing (the position's own values: `owner` has no transport
     # to shortcut and is ignored) --------------------------------------------
@@ -660,10 +675,14 @@ class SpmdBackend:
         shared0 = {m: session.store.get(m) for m in names}
         rows = [a.shape[0] // n for a in data]
 
+        def on_axis(linear: int) -> bool:
+            return all(c == 0 for a, c in mesh.coords(linear).items() if a != axis)
+
         def position(linear: int):
             tid = mesh.coords(linear)[axis]
             shards = [a[tid * r:(tid + 1) * r] for a, r in zip(data, rows)]
-            ctx = SpmdWorkerCtx(session, self, tid, dict(shared0), linear == 0)
+            ctx = SpmdWorkerCtx(session, self, tid, dict(shared0), linear == 0,
+                                on_axis(linear))
             session._tls.ctx = ctx
             try:
                 return thread_proc(ctx, *shards, *broadcast), ctx.values
@@ -675,8 +694,7 @@ class SpmdBackend:
             session.store.set(m, outs[0][1][m])
         # one result per position of the axis, in tid order (the positions
         # off the axis repeat them)
-        out = [res for i, (res, _) in enumerate(outs)
-               if all(c == 0 for a, c in mesh.coords(i).items() if a != axis)]
+        out = [res for i, (res, _) in enumerate(outs) if on_axis(i)]
         if tracing:
             trc.add_span("spmd", "spmd.execute", t0, time.perf_counter(),
                          {"threads": n})

@@ -445,6 +445,13 @@ class Tracer:
         # exactly one thread per round, where no race exists.
         self._counters[name] = self._counters.get(name, 0) + amount
 
+    def count_exact(self, name: str, amount: float = 1) -> None:
+        """:meth:`count` under the tracer's lock: for a counter that several
+        threads add to at once and that must come out exact (an app's
+        per-thread counts)."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + amount
+
     def observe(self, name: str, value: float, shard: Optional[int] = None) -> None:
         # Deliberately lock-free: observe() fires 2-3× per store op — often
         # while the caller holds a shard lock — and serialising all worker

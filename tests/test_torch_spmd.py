@@ -596,6 +596,22 @@ def test_pagerank_spmd(ref, mode, k):
     assert got["wire"] == s_h.wire_traffic()
 
 
+@pytest.mark.parametrize("shape,names", [((4,), ("data",)), ((4, 2), ("data", "model"))])
+def test_pagerank_spmd_counts_its_credit_path_once_per_thread_round(shape, names):
+    """The positions on the data axis count the CPU's ``plain`` path, one a
+    thread and round; the positions off it repeat a thread's work and count
+    nothing."""
+    edges = powerlaw_graph(300, 5, seed=3)
+    sess = Session(backend=SpmdBackend(mesh=_mesh(shape, names)), trace=True)
+    try:
+        pagerank.fit(edges, 300, iters=8, session=sess)
+        counters = sess.tracer.counters()
+    finally:
+        sess.tracer.disable()
+    assert counters["pagerank.credit_path.plain"] == 4 * 8
+    assert "pagerank.credit_path.binned" not in counters
+
+
 # -- the deprecated shims -------------------------------------------------------
 
 
