@@ -77,7 +77,16 @@ Phases, in order; any failure raises and the run exits non-zero:
              sparse_scatter_add in fp32),
              kmeans on the Covertype shape with the kernel (plus four
              uncounted runs from the default init, whose spread is printed),
-             logreg with sparse_k fused and unfused, nmf on Netflix's 17,770
+             logreg with sparse_k fused and unfused; logreg over a CSR x
+             (the benchmark's sparse_rows generator, at the cell's
+             19,264,097 x 29,890,095 with 566,345,888 nonzeros and at
+             200,000 rows of 29 or 30 of 1,000,003 features): thread 0's
+             slice of each through the margin kernel and the binned kernel
+             with a value an edge, held to their plain versions and timed
+             (the cell's slice is the kernels line's logreg_margin row, the
+             gradient's numbers beside it), then at the small size a traced
+             4-thread AUTO job with its launches and counters asserted, held
+             to the CPU's plain path (check_logreg_sparse); nmf on Netflix's 17,770
              movie columns (AUTO and reduce_scatter); one bf16 SPARSE round
              through DAddAccumulator at pagerank's V, fused and unfused,
              bit-exact with its plain path.  Beside the host runs, on the
@@ -334,8 +343,8 @@ from repro_torch.core.shards import ShardedStore  # noqa: E402
 from repro_torch.core.tiers import DiskTier, HostMemTier  # noqa: E402
 from repro_torch.core.sparse import block_layout, blocked_topk_sparsify, densify  # noqa: E402
 from repro_torch.data import (  # noqa: E402
-    LMDataPipeline, kmeans_dataset, lm_batch, logreg_dataset, nmf_dataset, partition_rows,
-    powerlaw_graph, shard_batch)
+    CSRMatrix, LMDataPipeline, kmeans_dataset, lm_batch, logreg_dataset, nmf_dataset,
+    partition_rows, powerlaw_graph, shard_batch)
 from repro_torch.ft import (  # noqa: E402
     AsyncCheckpointer, HeartbeatMonitor, elastic_restore, metrics_payload, restore_checkpoint,
     save_checkpoint, session_recovery)
@@ -350,6 +359,8 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bhsd_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
+from repro_torch.kernels.logreg_margin.ops import (  # noqa: E402
+    margin_residuals, margin_residuals_plain)
 from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem_bytes  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
@@ -387,6 +398,14 @@ SEED = 0
 LJ_VERTICES, LJ_DEGREE = 4_847_571, 14
 # kmeans: the UCI Covertype (FOREST) shape, 581,012 rows x 54 features, 7 classes
 COV_ROWS, COV_FEATURES, COV_K = 581_012, 54, 7
+# logreg over a CSR x: rows of 29 or 30 of 1,000,003 features (123 bins of
+# the binned kernel: one scatter pass), Zipf(1.0) popularity, as the
+# benchmark's kdd2010 (bridge) cell draws them at its 19.3 M x 29.9 M
+LR_CSR = {"rows": 200_000, "features": 1_000_003, "nnz": 5_880_017, "zipf_exponent": 1.0}
+# and the cell's own: kdd2010 (bridge)'s 19,264,097 rows, 29,890,095 features
+# and 566,345,888 nonzeros, of which a thread's slice holds a quarter
+LR_CELL = {"rows": 19_264_097, "features": 29_890_095, "nnz": 566_345_888,
+           "zipf_exponent": 1.0}
 # logreg: 1M rows x 512 features, sparse gradients with a budget of 32; the
 # gradient is a sum over rows, so the step shrinks with the row count (the
 # JAX package's tests step 1e-3 over 400 rows)
@@ -424,6 +443,9 @@ KERNELS = {
                            "src/repro/kernels/sparse_update/kernel.py:39"),
     "pagerank_credits": ("src/repro_torch/csrc/pagerank_credits.cu",
                          "no TPU kernel: XLA's scatter, src/repro/analytics/pagerank.py:30"),
+    "logreg_margin": ("src/repro_torch/csrc/logreg_margin.cu",
+                      "no TPU kernel: the JAX package's logreg takes a dense x, "
+                      "src/repro/analytics/logreg.py:34"),
 }
 
 # qwen2-72b (72.7 B parameters, 291 GB in fp32) cut in whole layers: the most
@@ -1718,6 +1740,125 @@ def check_credits(edges) -> dict:
     return per_thread[0]
 
 
+def logreg_slice_kernels(x: CSRMatrix, y: torch.Tensor, label: str) -> dict:
+    """Thread 0's slice of ``x``, as the host backend hands it out, through
+    the margin kernel against the plain version (2e-6 on residuals in
+    (-1, 1): the fp64 row sums run in another order, the sigmoids are two
+    implementations) and the binned kernel with a value an edge against a
+    plain fp64 scatter (one fp32 ulp beside the fp64 sums' own rounding),
+    each timed by CUDA events beside its plain version, the set-up pass by
+    the host clock.  The bounds are each kernel's streamed bytes: the
+    margin's 8 B a nonzero and a row, the gradient's 8 B a nonzero, 4 B a
+    row and 4 B a feature (the cell's roofline counts).  Returns the
+    margin's row of the kernels line, the gradient's numbers beside it."""
+    dev = torch.device("cuda")
+    rows, features = x.shape
+    theta = torch.randn(features, generator=torch.Generator(dev).manual_seed(SEED + 1),
+                        device=dev) * 0.1
+    lo, hi = partition_rows(rows, 0, N_THREADS)
+    part, ys = x[lo:hi], y[lo:hi]
+    row_of, cols = part.row_ids(), part.indices.long()
+    r = margin_residuals(part, ys, theta)
+    err = float((r - margin_residuals_plain(part, ys, theta, row_of)).abs().max())
+    if err > 2e-6:
+        raise AssertionError(f"logreg_margin, {label}: residuals {err:.3e} from the plain "
+                             "version's")
+    small = part[:64]                                         # the library's load
+    bin_edges(torch.stack([small.row_ids(torch.int32), small.indices], 1), features,
+              values=small.values, n_sources=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = torch.stack([part.row_ids(torch.int32), part.indices], 1)
+    binned = bin_edges(pairs, features, values=part.values, n_sources=part.shape[0])
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    del pairs
+
+    def plain_grad():
+        terms = r[row_of].double() * part.values.double()
+        return torch.zeros(features, dtype=torch.float64, device=dev).index_add_(0, cols, terms)
+
+    want = plain_grad()
+    size = torch.zeros_like(want).index_add_(0, cols, (r[row_of].double() * part.values).abs())
+    g_err = (binned_credits(binned, r).double() - want).abs()
+    eps64 = torch.finfo(torch.float64).eps
+    if not bool((g_err <= torch.finfo(torch.float32).eps * want.abs() + 64 * eps64 * size).all()):
+        raise AssertionError(f"binned credits with values, {label}: {float(g_err.max()):.3e} "
+                             "from the plain fp64 scatter")
+    g_err = float(g_err.max())
+    del want, size
+    t, by = bound_ms(8 * part.nnz + 8 * part.shape[0])
+    g_t, _ = bound_ms(8 * part.nnz + 4 * part.shape[0] + 4 * features)
+    measured = dict(
+        shape=f"{label}, thread 0's slice: {part.shape[0]} rows, {part.nnz} nonzeros over "
+              f"{features} features", max_abs_err=err,
+        ms=time_ms(lambda: margin_residuals(part, ys, theta), 10),
+        plain_ms=time_ms(lambda: margin_residuals_plain(part, ys, theta, row_of), 5),
+        bound_ms=t, bound_by=by, library_ms=None,
+        grad_ms=time_ms(lambda: binned_credits(binned, r), 10),
+        grad_plain_ms=time_ms(plain_grad, 5), grad_bound_ms=g_t, grad_max_abs_err=g_err,
+        split_bins=binned.plan.n_split, items=int(binned.plan.items.shape[0]),
+        setup_ms=setup_ms)
+    log(f"logreg csr, {label}, thread 0's slice ({part.shape[0]} rows, {part.nnz} nonzeros, "
+        f"{features} features): margin kernel {measured['ms']:.4f} ms (plain "
+        f"{measured['plain_ms']:.4f}, bound {t:.4f}), binned gradient "
+        f"{measured['grad_ms']:.4f} ms (plain fp64 scatter {measured['grad_plain_ms']:.4f}, "
+        f"bound {g_t:.4f}; {binned.plan.n_split} split bins, {measured['items']} items), "
+        f"set-up pass {setup_ms:.2f} ms (host clock); max abs err: residuals {err:.3e}, "
+        f"gradient {g_err:.3e}")
+    return measured
+
+
+# the gradient's numbers beside the margin kernel's in the kernels line's
+# logreg_margin row (the binned kernel with values, at the cell's slice)
+GRAD_KEYS = ("grad_max_abs_err", "grad_ms", "grad_plain_ms", "grad_bound_ms")
+
+
+def check_logreg_sparse(counts: dict) -> dict:
+    """logreg over a CSR design matrix, made on the card by the benchmark's
+    generator: both kernels on thread 0's slice (``logreg_slice_kernels``)
+    at ``LR_CSR`` and at the benchmark cell's size (``LR_CELL``, whose row
+    is the kernels line's: the shape the cell's threads run); then a traced
+    4-thread AUTO job at ``LR_CSR`` on the card with its launches and
+    counters asserted, held to the CPU's plain path at 1e-6 of max
+    |theta|."""
+    from stepbench.generators import sparse_rows
+    dev = torch.device("cuda")
+    d = sparse_rows.make({"matrix": LR_CELL}, torch.Generator(dev).manual_seed(SEED), dev)
+    cell = logreg_slice_kernels(CSRMatrix(d["indptr"], d["indices"], d["values"],
+                                          d["n_features"]), d["y"], "the cell's size")
+    del d
+    torch.cuda.empty_cache()
+    d = sparse_rows.make({"matrix": LR_CSR}, torch.Generator(dev).manual_seed(SEED), dev)
+    x, y = CSRMatrix(d["indptr"], d["indices"], d["values"], d["n_features"]), d["y"]
+    rows = x.shape[0]
+    logreg_slice_kernels(x, y, "LR_CSR")
+
+    traced = Session(n_nodes=N_NODES, threads_per_node=THREADS_PER_NODE, trace=True)
+    try:
+        (th, _), launched = run_app("logreg csr auto", counts, lambda: logreg.fit(
+            x, y, iters=ITERS, lr=1.0 / rows, mode="auto", session=traced))
+        branches = [sp["args"]["mode"] for sp in
+                    traced.tracer.spans("accumulate-round", "accumulate.round")]
+        counters = traced.tracer.counters()
+    finally:
+        traced.tracer.disable()
+    expect_launches("logreg csr auto", launched, {
+        "logreg_margin": N_THREADS * ITERS, "pagerank_credits": N_THREADS * ITERS,
+        "pagerank_bin_histogram": N_THREADS, "pagerank_bin_scatter": N_THREADS})
+    want_counts = {"logreg.grad_path.binned": N_THREADS * ITERS, "logreg.nnz": x.nnz}
+    if any(counters.get(k) != v for k, v in want_counts.items()):
+        raise AssertionError(f"logreg csr auto: counters {counters}")
+    th_cpu, _ = logreg.fit(x.to("cpu"), y.cpu(), iters=ITERS, lr=1.0 / rows, device="cpu")
+    gap = float(np.abs(th - th_cpu).max() / np.abs(th_cpu).max())
+    if gap > 1e-6:
+        raise AssertionError(f"logreg csr auto: theta {gap:.3e} of max |theta| from the CPU's")
+    log(f"logreg csr auto: branches {collections.Counter(branches)}, split bins "
+        f"{counters.get('logreg.grad_bins.split', 0)}, theta vs the CPU's plain path "
+        f"{gap:.3e} of max |theta|")
+    return cell
+
+
 def session(fused: bool = True) -> Session:
     return Session(backend=HostBackend(N_NODES, THREADS_PER_NODE, fused=fused))
 
@@ -1940,6 +2081,7 @@ def run_apps(keep: dict) -> dict:
         f"wire {s_s.wire_traffic()} (== host)")
     keep["logreg"] = (x, y)
     del x, y
+    keep["logreg_margin"] = check_logreg_sparse(counts)
 
     # -- nmf, Netflix's movie columns -----------------------------------------
     t0 = time.perf_counter()
@@ -4076,8 +4218,9 @@ def main() -> None:
     count_draws()
     keep: dict = {}
     counts = run_apps(keep)
-    measured["pagerank_credits"] = keep.pop("pagerank_credits")
-    log_kernel("pagerank_credits", measured["pagerank_credits"])
+    for name in ("pagerank_credits", "logreg_margin"):
+        measured[name] = keep.pop(name)
+        log_kernel(name, measured[name])
     for name, n in run_armed(keep).items():
         counts[name] = counts.get(name, 0) + n
     report_exports()
@@ -4099,7 +4242,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[name],
          **{key: measured[name][key] for key in
-            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{key: measured[name][key] for key in GRAD_KEYS if key in measured[name]}}
         for name, (src, replaces) in KERNELS.items()]}
     print(json.dumps(line))
     print(smi)

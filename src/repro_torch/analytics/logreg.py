@@ -9,11 +9,30 @@ either substrate — ``backend="host"`` (DThreadPool + DAddAccumulator) or
 ``backend="spmd"`` (one STEP thread per mesh position) — selected at
 ``Session`` construction.
 
+``x`` may be a :class:`~repro_torch.data.csr.CSRMatrix` (a sparse,
+high-dimensional design matrix): ``Session.run`` then hands each thread its
+rows of ``x`` with its labels.  A thread's gradient is ``X_t^T r`` with the
+residuals ``r = y - sigmoid(X_t theta)``.  On the card the residuals take
+one launch a round (:func:`~repro_torch.kernels.logreg_margin.ops.margin_residuals`,
+a warp a row), and the gradient pagerank's binned credit kernel with a
+value an edge: each thread sorts its nonzeros by feature once a job
+(:func:`~repro_torch.kernels.pagerank_credits.ops.bin_edges`, edges from a
+row to a feature) and sums ``r[row] * x[row, feature]`` per feature in
+fp64 on chip (``binned_credits``), each rounded once to fp32.  A CPU slice
+takes :func:`_csr_grad`, the plain version the kernels are held against.
+A traced session counts the path once per thread and round
+(``logreg.grad_path.binned`` or ``.plain``), each thread's nonzeros once a
+job (``logreg.nnz``) and on the card its split bins (``logreg.grad_bins.split``),
+and records the job's ``job.setup``, ``session.join`` and ``job.teardown``
+spans on the calling thread.  A dense ``x`` keeps its path, its bits and the
+JAX package's spans.
+
 ``fit_threads`` / ``fit_spmd`` remain as deprecation shims over ``fit``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -22,7 +41,10 @@ import torch
 from repro_torch.core import AccumMode, Session
 from repro_torch.core.dsm import GlobalStore
 from repro_torch.core.session import SpmdBackend, deprecated_entry
+from repro_torch.data.csr import CSRMatrix
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.kernels.logreg_margin.ops import margin_residuals, margin_residuals_plain
+from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits
 
 
 def _sigmoid(z):
@@ -33,6 +55,46 @@ def _local_grad(theta, x, y):
     """δ = Σ_p (y_p − σ(θᵀx_p))·x_p over this thread's mini-batch."""
     pred = _sigmoid(x @ theta)
     return (y - pred) @ x
+
+
+def _csr_grad(theta, xs: CSRMatrix, ys, rows):
+    """The plain ``X_t^T (y - sigmoid(X_t theta))`` of a CSR slice: the
+    residuals as :func:`margin_residuals_plain` makes them, the terms
+    ``r[row] * x`` in fp64 added by feature, rounded once to fp32
+    (``rows``: the slice's :meth:`~CSRMatrix.row_ids`)."""
+    r = margin_residuals_plain(xs, ys, theta, rows)
+    terms = r[rows].double() * xs.values.double()
+    return torch.zeros(xs.shape[1], dtype=torch.float64, device=theta.device).index_add_(
+        0, xs.indices.long(), terms).float()
+
+
+def _sparse_local_grad(ctx, xs: CSRMatrix, ys):
+    """This thread's gradient as a function of theta, counted once a call,
+    after the set-up it needs once a job: on the card the slice binned by
+    feature."""
+    ctx.count("logreg.nnz", xs.nnz)
+    if xs.is_cuda:
+        pairs = torch.empty((xs.nnz, 2), dtype=torch.int32, device=xs.device)
+        pairs[:, 0] = xs.row_ids(torch.int32)
+        pairs[:, 1] = xs.indices
+        binned = bin_edges(pairs, xs.shape[1], values=xs.values, n_sources=xs.shape[0])
+        del pairs
+        ctx.count("logreg.grad_bins.split", binned.plan.n_split)
+
+        def local(theta):
+            ctx.count("logreg.grad_path.binned")
+            return binned_credits(binned, margin_residuals(xs, ys, theta))
+    else:
+        rows = xs.row_ids()
+
+        def local(theta):
+            ctx.count("logreg.grad_path.plain")
+            return _csr_grad(theta, xs, ys, rows)
+    return local
+
+
+def _no_span(cat: str, name: str):
+    return contextlib.nullcontext()
 
 
 def loss(theta, x, y) -> float:
@@ -57,6 +119,7 @@ def fit(x, y, *, iters: int = 10, lr: float = 1e-3,
         n_nodes: int = 2, threads_per_node: int = 2, mesh=None, device=None):
     """Paper §4.5 through the Table-1 facade; backend-agnostic.
 
+    ``x`` is a dense (rows, d) array or a :class:`CSRMatrix`.
     ``mode="sparse"``/``"auto"`` compress the gradient to top-``k`` (index,
     value) pairs — ``k`` becomes the grad ref's declared budget.  Returns
     ``(theta, session)``.
@@ -66,18 +129,33 @@ def fit(x, y, *, iters: int = 10, lr: float = 1e-3,
                               device=device)
     d = x.shape[1]
     grad = sess.new_array("grad", (d,), sparse_k=k)
+    sparse = isinstance(x, CSRMatrix)
 
     def thread_proc(ctx, xs, ys):
+        if sparse:
+            local_grad = _sparse_local_grad(ctx, xs, ys)
+        else:
+            def local_grad(theta):
+                return _local_grad(theta, xs, ys)
+
         def step(theta):                              # one synchronous round
             with ctx.span("logreg.round"):            # app-round marker
-                local = _local_grad(theta, xs, ys)        # lines 14–21
+                local = local_grad(theta)                 # lines 14–21
                 total = grad.accumulate(local, mode=mode)  # line 22 (sync point)
                 return theta + lr * total             # lines 23–24
         return ctx.iterate(step, torch.zeros(d, dtype=torch.float32,
                                              device=ctx.device), iters)
 
-    thetas = sess.run(thread_proc, data=(x, y))
-    return thetas[0].cpu().numpy(), sess
+    # a dense x records the JAX package's spans alone
+    span = sess.span if sparse else _no_span
+    with span("job", "job.setup"):
+        with span("job", "session.spawn"):
+            sess.spawn(thread_proc, data=(x, y))
+    with span("job", "session.join"):
+        thetas = sess.join()
+    with span("job", "job.teardown"):
+        theta = thetas[0].cpu().numpy()
+    return theta, sess
 
 
 def fit_ssp(x, y, *, n_workers: int = 4, staleness: int = 1, iters: int = 10,

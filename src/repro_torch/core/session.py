@@ -71,6 +71,7 @@ from repro_torch.core.dsm import GlobalStore
 from repro_torch.core.sparse import default_auto_k, pair_capacity
 from repro_torch.core.sync import DBarrier, DSemaphore, SSPClock
 from repro_torch.core.threads import DThreadPool, ThreadState
+from repro_torch.data.csr import CSRMatrix
 from repro_torch.data.pipeline import partition_rows
 from repro_torch.device import resolve_device, to_tensor
 
@@ -898,8 +899,12 @@ class Session:
         ``thread_proc(ctx, *data_shards, *broadcast)`` receives this thread's
         contiguous row-partition of each array in ``data`` and every array in
         ``broadcast`` whole.  Both move to the session's device once, here.
+        A :class:`~repro_torch.data.csr.CSRMatrix` in ``data`` is cut by
+        rows like a dense array, so a thread's rows of a sparse ``x`` and of
+        its labels stay together.
         """
-        data = tuple(to_tensor(a, self.device) for a in data)
+        data = tuple(a.to(self.device) if isinstance(a, CSRMatrix) else to_tensor(a, self.device)
+                     for a in data)
         broadcast = tuple(to_tensor(b, self.device) for b in broadcast)
         ck = self.checker
         if stepcheck.CHECKING and ck.enabled:

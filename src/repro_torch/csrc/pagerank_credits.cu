@@ -42,6 +42,17 @@
 //   adds varies from run to run, so a credit may differ by one fp32 ulp
 //   between runs, as the fp64 index_add_'s atomics do.
 //
+// * A value per edge, optional (logistic regression's gradient, g = X^T r
+//   over a CSR design matrix: the edges are its nonzeros (row -> feature),
+//   w the rows' residuals, and each term w[row] * x[row, feature]).  The
+//   set-up scatter carries each edge's fp32 value beside its pair into the
+//   binned copy (a second array, 4 B an edge), and the round multiplies it
+//   into w[src] in fp64 (the product of two fp32 values is exact there).
+//   Each kernel takes the values as a template flag, so pagerank's
+//   instances, without them, are the code they were, and load nothing more.
+//   The sources then index w (n_sources entries), which need not be the V
+//   destinations': the histogram checks each end against its own range.
+//
 // Bound: device memory.  A round streams 8 B of pairs an edge and reads w
 // and writes the credits once (4 B + 4 B a vertex): for the pagerank cell
 // (4 slices of 268,435,456 edges, V = 67,108,864) 10.7 GB an iteration,
@@ -77,12 +88,14 @@ __device__ __forceinline__ void load_edge(const I* edges, long long e, long long
   d = p.y;
 }
 
-// counts[b] += edges of bin b; counts[n_bins] += edges with an index outside
-// [0, V) (not binned).  Bins counted in shared memory where they fit.
+// counts[b] += edges of bin b; counts[n_bins] += edges with a source outside
+// [0, n_sources) or a destination outside [0, V) (not binned).  Bins
+// counted in shared memory where they fit.
 template <typename I>
 __global__ void __launch_bounds__(kBinThreads)
-bin_histogram_kernel(const I* __restrict__ edges, long long n_edges, long long n_vertices,
-                     int shift, int n_bins, unsigned long long* __restrict__ counts) {
+bin_histogram_kernel(const I* __restrict__ edges, long long n_edges, long long n_sources,
+                     long long n_vertices, int shift, int n_bins,
+                     unsigned long long* __restrict__ counts) {
   extern __shared__ unsigned int hist[];
   const bool local = n_bins <= kMaxSharedBins;
   if (local) {
@@ -95,7 +108,7 @@ bin_histogram_kernel(const I* __restrict__ edges, long long n_edges, long long n
        e < n_edges; e += step) {
     long long s, d;
     load_edge(edges, e, s, d);
-    if (s < 0 || s >= n_vertices || d < 0 || d >= n_vertices) {
+    if (s < 0 || s >= n_sources || d < 0 || d >= n_vertices) {
       ++bad;
       continue;
     }
@@ -114,21 +127,24 @@ bin_histogram_kernel(const I* __restrict__ edges, long long n_edges, long long n
 }
 
 // Each edge of the CTA's chunk to cursor[group] + its rank in the chunk's
-// share of the group (group = dst >> shift, n_bins groups).  cursor starts
-// at the groups' starts and ends at their ends.  Every index was checked
-// by the histogram.
-template <typename I>
+// share of the group (group = dst >> shift, n_bins groups), and with
+// kValues its value vals[e] to vals_out at the same place.  cursor starts
+// at the groups' starts and ends at their ends.  Every index was checked by
+// the histogram.
+template <typename I, bool kValues>
 __global__ void __launch_bounds__(kBinThreads)
 bin_scatter_kernel(const I* __restrict__ edges, long long n_edges, int shift, int n_bins,
-                   unsigned long long* __restrict__ cursor, int2* __restrict__ out) {
+                   unsigned long long* __restrict__ cursor, int2* __restrict__ out,
+                   const float* __restrict__ vals, float* __restrict__ vals_out) {
   const long long lo = static_cast<long long>(blockIdx.x) * kScatterChunk;
   const long long hi = lo + kScatterChunk < n_edges ? lo + kScatterChunk : n_edges;
   long long s, d;
   if (n_bins > kMaxSharedBins) {   // a global atomic an edge
     for (long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
       load_edge(edges, e, s, d);
-      out[atomicAdd(cursor + (d >> shift), 1ull)] =
-          make_int2(static_cast<int>(s), static_cast<int>(d));
+      const unsigned long long at = atomicAdd(cursor + (d >> shift), 1ull);
+      out[at] = make_int2(static_cast<int>(s), static_cast<int>(d));
+      if constexpr (kValues) vals_out[at] = __ldcs(vals + e);
     }
     return;
   }
@@ -150,19 +166,24 @@ bin_scatter_kernel(const I* __restrict__ edges, long long n_edges, int shift, in
   for (long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
     load_edge(edges, e, s, d);
     const int b = static_cast<int>(d >> shift);
-    out[base[b] + atomicAdd(fill + b, 1u)] = make_int2(static_cast<int>(s), static_cast<int>(d));
+    const unsigned long long at = base[b] + atomicAdd(fill + b, 1u);
+    out[at] = make_int2(static_cast<int>(s), static_cast<int>(d));
+    if constexpr (kValues) vals_out[at] = __ldcs(vals + e);
   }
 }
 
 // One work item a CTA: items[4 i .. 4 i + 3] = begin, end (edges of the
 // binned copy), bin, slot (-1: the item is the whole bin; else the bin's
 // scratch row, shared by its pieces[slot] pieces).  acc (slots x 2^shift
-// fp64) and done (slots) are zero before the launch and after it.
+// fp64) and done (slots) are zero before the launch and after it.  An
+// edge's term is w[src], times vals[e] in fp64 with kValues.
+template <bool kValues>
 __global__ void __launch_bounds__(kCreditThreads, 3)
-credits_kernel(const int2* __restrict__ pairs, const long long* __restrict__ items,
-               const float* __restrict__ w, long long n_vertices, int shift,
-               double* __restrict__ acc, unsigned int* __restrict__ done,
-               const long long* __restrict__ pieces, float* __restrict__ out) {
+credits_kernel(const int2* __restrict__ pairs, const float* __restrict__ vals,
+               const long long* __restrict__ items, const float* __restrict__ w,
+               long long n_vertices, int shift, double* __restrict__ acc,
+               unsigned int* __restrict__ done, const long long* __restrict__ pieces,
+               float* __restrict__ out) {
   extern __shared__ double part[];
   __shared__ bool last;
   const long long* item = items + 4 * static_cast<long long>(blockIdx.x);
@@ -180,16 +201,30 @@ credits_kernel(const int2* __restrict__ pairs, const long long* __restrict__ ite
   for (; e + (kUnroll - 1) * stride < end; e += kUnroll * stride) {
     int2 p[kUnroll];
     float x[kUnroll];
+    [[maybe_unused]] float v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) p[u] = __ldcs(pairs + e + u * stride);
+    if constexpr (kValues) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(vals + e + u * stride);
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) x[u] = __ldg(w + p[u].x);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) atomicAdd(part + (p[u].y - first), static_cast<double>(x[u]));
+    for (int u = 0; u < kUnroll; ++u) {
+      if constexpr (kValues)
+        atomicAdd(part + (p[u].y - first), static_cast<double>(x[u]) * static_cast<double>(v[u]));
+      else
+        atomicAdd(part + (p[u].y - first), static_cast<double>(x[u]));
+    }
   }
   for (; e < end; e += stride) {
     const int2 p = __ldcs(pairs + e);
-    atomicAdd(part + (p.y - first), static_cast<double>(__ldg(w + p.x)));
+    if constexpr (kValues)
+      atomicAdd(part + (p.y - first),
+                static_cast<double>(__ldg(w + p.x)) * static_cast<double>(__ldcs(vals + e)));
+    else
+      atomicAdd(part + (p.y - first), static_cast<double>(__ldg(w + p.x)));
   }
   __syncthreads();
 
@@ -237,8 +272,9 @@ static int allow_shared(K kernel, int bytes) {
 }
 
 template <typename I>
-static int histogram(const void* edges, long long n_edges, long long n_vertices, int shift,
-                     int n_bins, unsigned long long* counts, cudaStream_t s) {
+static int histogram(const void* edges, long long n_edges, long long n_sources,
+                     long long n_vertices, int shift, int n_bins, unsigned long long* counts,
+                     cudaStream_t s) {
   if (n_edges == 0) return 0;
   const int attr = allow_shared(bin_histogram_kernel<I>,
                                 kMaxSharedBins * static_cast<int>(sizeof(unsigned int)));
@@ -250,56 +286,82 @@ static int histogram(const void* edges, long long n_edges, long long n_vertices,
   if (blocks > cap) blocks = cap;
   const int smem = n_bins <= kMaxSharedBins ? n_bins * static_cast<int>(sizeof(unsigned int)) : 0;
   bin_histogram_kernel<I><<<static_cast<unsigned>(blocks), kBinThreads, smem, s>>>(
-      static_cast<const I*>(edges), n_edges, n_vertices, shift, n_bins, counts);
+      static_cast<const I*>(edges), n_edges, n_sources, n_vertices, shift, n_bins, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename I, bool kValues>
+static int scatter(const void* edges, long long n_edges, int shift, int n_bins,
+                   unsigned long long* cursor, int2* out, const float* vals, float* vals_out,
+                   cudaStream_t s) {
+  constexpr int kSlot = sizeof(unsigned long long) + sizeof(unsigned int);
+  if (n_edges == 0) return 0;
+  const int attr = allow_shared(bin_scatter_kernel<I, kValues>, kMaxSharedBins * kSlot);
+  if (attr) return attr;
+  const long long blocks = (n_edges + kScatterChunk - 1) / kScatterChunk;
+  const int smem = n_bins <= kMaxSharedBins ? n_bins * kSlot : 0;
+  bin_scatter_kernel<I, kValues><<<static_cast<unsigned>(blocks), kBinThreads, smem, s>>>(
+      static_cast<const I*>(edges), n_edges, shift, n_bins, cursor, out, vals, vals_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename I>
-static int scatter(const void* edges, long long n_edges, int shift, int n_bins,
-                   unsigned long long* cursor, int2* out, cudaStream_t s) {
-  constexpr int kSlot = sizeof(unsigned long long) + sizeof(unsigned int);
-  if (n_edges == 0) return 0;
-  const int attr = allow_shared(bin_scatter_kernel<I>, kMaxSharedBins * kSlot);
+static int scatter_values(const void* edges, long long n_edges, int shift, int n_bins,
+                          unsigned long long* cursor, int2* out, const float* vals,
+                          float* vals_out, cudaStream_t s) {
+  if (vals) return scatter<I, true>(edges, n_edges, shift, n_bins, cursor, out, vals, vals_out, s);
+  return scatter<I, false>(edges, n_edges, shift, n_bins, cursor, out, nullptr, nullptr, s);
+}
+
+template <bool kValues>
+static int credits(const void* pairs, const float* vals, const long long* items, int n_items,
+                   const float* w, long long n_vertices, int shift, double* acc,
+                   unsigned int* done, const long long* pieces, float* out, cudaStream_t s) {
+  const int attr = allow_shared(credits_kernel<kValues>,
+                                static_cast<int>(sizeof(double)) << kMaxShift);
   if (attr) return attr;
-  const long long blocks = (n_edges + kScatterChunk - 1) / kScatterChunk;
-  const int smem = n_bins <= kMaxSharedBins ? n_bins * kSlot : 0;
-  bin_scatter_kernel<I><<<static_cast<unsigned>(blocks), kBinThreads, smem, s>>>(
-      static_cast<const I*>(edges), n_edges, shift, n_bins, cursor, out);
+  const int smem = static_cast<int>(sizeof(double)) << shift;
+  credits_kernel<kValues><<<static_cast<unsigned>(n_items), kCreditThreads, smem, s>>>(
+      static_cast<const int2*>(pairs), vals, items, w, n_vertices, shift, acc, done, pieces,
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // index_kind: 0 int32, 1 int64.  counts: n_bins + 1 zeroed u64.
 extern "C" int pagerank_bin_histogram(int index_kind, const void* edges, long long n_edges,
-                                      long long n_vertices, int shift, int n_bins,
-                                      unsigned long long* counts, void* stream) {
+                                      long long n_sources, long long n_vertices, int shift,
+                                      int n_bins, unsigned long long* counts, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (index_kind == 0) return histogram<int>(edges, n_edges, n_vertices, shift, n_bins, counts, s);
-  return histogram<long long>(edges, n_edges, n_vertices, shift, n_bins, counts, s);
+  if (index_kind == 0)
+    return histogram<int>(edges, n_edges, n_sources, n_vertices, shift, n_bins, counts, s);
+  return histogram<long long>(edges, n_edges, n_sources, n_vertices, shift, n_bins, counts, s);
 }
 
 // cursor: n_bins u64, the starts of the groups dst >> shift (their ends after
-// the call); out: (E, 2) int32.
+// the call); out: (E, 2) int32; vals, vals_out: (E,) float32 each, or both
+// null (no values).
 extern "C" int pagerank_bin_scatter(int index_kind, const void* edges, long long n_edges,
                                     int shift, int n_bins, unsigned long long* cursor, void* out,
-                                    void* stream) {
+                                    const float* vals, float* vals_out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   int2* o = static_cast<int2*>(out);
-  if (index_kind == 0) return scatter<int>(edges, n_edges, shift, n_bins, cursor, o, s);
-  return scatter<long long>(edges, n_edges, shift, n_bins, cursor, o, s);
+  if (index_kind == 0)
+    return scatter_values<int>(edges, n_edges, shift, n_bins, cursor, o, vals, vals_out, s);
+  return scatter_values<long long>(edges, n_edges, shift, n_bins, cursor, o, vals, vals_out, s);
 }
 
-// One launch: every credit of the V vertices, out (V,) float32.
-extern "C" int pagerank_credits(const void* pairs, const long long* items, int n_items,
-                                const float* w, long long n_vertices, int shift, double* acc,
-                                unsigned int* done, const long long* pieces, float* out,
-                                void* stream) {
+// One launch: every credit of the V vertices, out (V,) float32; vals, the
+// binned copy's value an edge, or null.
+extern "C" int pagerank_credits(const void* pairs, const float* vals, const long long* items,
+                                int n_items, const float* w, long long n_vertices, int shift,
+                                double* acc, unsigned int* done, const long long* pieces,
+                                float* out, void* stream) {
   if (shift < 0 || shift > kMaxShift) return static_cast<int>(cudaErrorInvalidValue);
   if (n_items == 0) return 0;
-  const int attr = allow_shared(credits_kernel, static_cast<int>(sizeof(double)) << kMaxShift);
-  if (attr) return attr;
-  const int smem = static_cast<int>(sizeof(double)) << shift;
-  credits_kernel<<<static_cast<unsigned>(n_items), kCreditThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int2*>(pairs), items, w, n_vertices, shift, acc, done, pieces, out);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vals)
+    return credits<true>(pairs, vals, items, n_items, w, n_vertices, shift, acc, done, pieces,
+                         out, s);
+  return credits<false>(pairs, nullptr, items, n_items, w, n_vertices, shift, acc, done, pieces,
+                        out, s);
 }

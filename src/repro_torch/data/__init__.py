@@ -1,3 +1,4 @@
+from repro_torch.data.csr import CSRMatrix
 from repro_torch.data.pipeline import LMDataPipeline, Prefetcher, partition_rows, shard_batch
 from repro_torch.data.synthetic import (
     SyntheticLM,
@@ -9,7 +10,7 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = [
-    "LMDataPipeline", "Prefetcher", "partition_rows", "shard_batch",
+    "CSRMatrix", "LMDataPipeline", "Prefetcher", "partition_rows", "shard_batch",
     "SyntheticLM", "kmeans_dataset", "lm_batch", "logreg_dataset",
     "nmf_dataset", "powerlaw_graph",
 ]

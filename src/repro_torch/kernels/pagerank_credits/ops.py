@@ -12,13 +12,24 @@ does it); ``csrc/pagerank_credits.cu`` does it on the card in two parts:
 * :func:`binned_credits`, one launch a round: the bins' fp64 sums in shared
   memory, each credit rounded once and written once.
 
+Each edge may carry an fp32 value (``bin_edges(..., values=)``): the
+set-up pass carries it into the binned copy and the round sums ``w[src] *
+value`` (in fp64, exact) in place of ``w[src]``.  Logistic regression's
+gradient over a CSR design matrix is that sum (``analytics/logreg.py``:
+an edge a nonzero, row to feature, ``w`` the rows' residuals), so its
+sources range over the ``n_sources`` rows of ``w``, not over the
+destinations.  Pagerank passes neither and runs the kernels' instances
+without values.
+
 Both take CUDA tensors only: on the CPU ``analytics/pagerank.py`` keeps the
-plain ``_credits``, which the kernels are held against on the card.
+plain ``_credits`` (and ``analytics/logreg.py`` its plain gradient), which
+the kernels are held against on the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,12 +54,12 @@ histogram_launches = build.LaunchCounter("pagerank_bin_histogram")   # the set-u
 scatter_launches = build.LaunchCounter("pagerank_bin_scatter")       # kernels
 
 _SIGNATURES = {
-    "pagerank_bin_histogram": (build.INT, build.PTR, build.LONG, build.LONG, build.INT,
-                               build.INT, build.PTR, build.PTR),
+    "pagerank_bin_histogram": (build.INT, build.PTR, build.LONG, build.LONG, build.LONG,
+                               build.INT, build.INT, build.PTR, build.PTR),
     "pagerank_bin_scatter": (build.INT, build.PTR, build.LONG, build.INT, build.INT,
-                             build.PTR, build.PTR, build.PTR),
-    "pagerank_credits": (build.PTR, build.PTR, build.INT, build.PTR, build.LONG, build.INT,
-                         build.PTR, build.PTR, build.PTR, build.PTR, build.PTR),
+                             build.PTR, build.PTR, build.PTR, build.PTR, build.PTR),
+    "pagerank_credits": (build.PTR, build.PTR, build.PTR, build.INT, build.PTR, build.LONG,
+                         build.INT, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR),
 }
 
 
@@ -114,13 +125,16 @@ class BinnedEdges:
     pieces: torch.Tensor         # (n_split,) int64
     acc: torch.Tensor            # (n_split * BIN,) float64, zero between launches
     done: torch.Tensor           # (n_split,) int32, zero between launches
+    values: Optional[torch.Tensor]   # (E,) float32 beside the pairs, or None
+    n_sources: int                   # the length of w
 
 
 def _n_bins(n_vertices: int) -> int:
     return -(-n_vertices // BIN)
 
 
-def _check_edges(edges: torch.Tensor, n_vertices: int) -> None:
+def _check_edges(edges: torch.Tensor, n_vertices: int, values: Optional[torch.Tensor],
+                 n_sources: int) -> None:
     if edges.ndim != 2 or edges.shape[1] != 2:
         raise ValueError("bin_edges wants an (E, 2) tensor of (src, dst) rows, got "
                          f"{tuple(edges.shape)}")
@@ -130,37 +144,51 @@ def _check_edges(edges: torch.Tensor, n_vertices: int) -> None:
         raise ValueError("bin_edges takes a contiguous (E, 2) slice of rows")
     if not 1 <= n_vertices <= MAX_VERTICES:
         raise ValueError(f"bin_edges takes 1 <= n_vertices < 2**31, got {n_vertices}")
+    if not 0 <= n_sources <= MAX_VERTICES:
+        raise ValueError(f"bin_edges takes 0 <= n_sources < 2**31, got {n_sources}")
+    if values is not None:
+        if values.dtype != torch.float32 or values.shape != edges.shape[:1]:
+            raise TypeError(f"bin_edges wants values of shape ({edges.shape[0]},) float32, "
+                            f"got {tuple(values.shape)} {values.dtype}")
+        if not values.is_contiguous() or values.device != edges.device:
+            raise ValueError("bin_edges takes contiguous values on the edges' device")
     if not edges.is_cuda:
         raise ValueError(f"bin_edges runs on the card, not {edges.device}: the CPU takes "
                          "pagerank._credits")
 
 
 def _binned(pairs: torch.Tensor, n_vertices: int, plan: BinPlan, items: torch.Tensor,
-            pieces: torch.Tensor) -> BinnedEdges:
+            pieces: torch.Tensor, values: Optional[torch.Tensor] = None,
+            n_sources: Optional[int] = None) -> BinnedEdges:
     dev = pairs.device
     return BinnedEdges(pairs, n_vertices, plan, items, pieces,
                        torch.zeros(plan.n_split * BIN, dtype=torch.float64, device=dev),
-                       torch.zeros(plan.n_split, dtype=torch.int32, device=dev))
+                       torch.zeros(plan.n_split, dtype=torch.int32, device=dev),
+                       values, n_vertices if n_sources is None else n_sources)
 
 
-def bin_edges(edges: torch.Tensor, n_vertices: int) -> BinnedEdges:
+def bin_edges(edges: torch.Tensor, n_vertices: int, *, values: Optional[torch.Tensor] = None,
+              n_sources: Optional[int] = None) -> BinnedEdges:
     """``edges`` (E, 2) int32 or int64, contiguous, sorted by counting on
-    ``dst >> BIN_SHIFT`` into a new int32 copy, with its plan.
+    ``dst >> BIN_SHIFT`` into a new int32 copy, with its plan; ``values``
+    (E,) float32, if given, into a copy in the same order.
 
-    Raises on another dtype or shape, a non-contiguous slice, a tensor off
-    the card, ``n_vertices`` outside ``[1, 2**31)``, or an index outside
-    ``[0, n_vertices)``.  In segments of :data:`SEGMENT` edges: a histogram
-    of each, one read of them by the host, then each segment scattered (by
-    bucket into a staging copy and that by bin, where there are more bins
-    than a bucket holds)."""
-    _check_edges(edges, n_vertices)
+    Sources lie in ``[0, n_sources)`` (``n_vertices`` where None),
+    destinations in ``[0, n_vertices)``.  Raises on another dtype or shape,
+    a non-contiguous slice, a tensor off the card, ``n_vertices`` outside
+    ``[1, 2**31)``, or an index outside its range.  In segments of
+    :data:`SEGMENT` edges: a histogram of each, one read of them by the host,
+    then each segment scattered (by bucket into a staging copy and that by
+    bin, where there are more bins than a bucket holds)."""
+    sources = n_vertices if n_sources is None else n_sources
+    _check_edges(edges, n_vertices, values, sources)
     if edges.data_ptr() % (2 * edges.element_size()):
         raise ValueError("bin_edges reads each row as one vector: the slice must start "
                          "on a row-pair boundary")
     index = edges.get_device()
     if index != torch.cuda.current_device():   # switch devices only where needed
         with torch.cuda.device(index):
-            return bin_edges(edges, n_vertices)
+            return bin_edges(edges, n_vertices, values=values, n_sources=n_sources)
     n_edges, n_bins = edges.shape[0], _n_bins(n_vertices)
     kind = INDEX_KINDS[edges.dtype]
     stream = torch.cuda.current_stream(index).cuda_stream
@@ -168,8 +196,8 @@ def bin_edges(edges: torch.Tensor, n_vertices: int) -> BinnedEdges:
     segments = [edges[lo:lo + SEGMENT] for lo in range(0, max(n_edges, 1), SEGMENT)]
     counts = torch.zeros((len(segments), n_bins + 1), dtype=torch.int64, device=edges.device)
     for seg, row in zip(segments, counts):
-        code = lib.pagerank_bin_histogram(kind, seg.data_ptr(), seg.shape[0], n_vertices,
-                                          BIN_SHIFT, n_bins, row.data_ptr(), stream)
+        code = lib.pagerank_bin_histogram(kind, seg.data_ptr(), seg.shape[0], sources,
+                                          n_vertices, BIN_SHIFT, n_bins, row.data_ptr(), stream)
         if code:
             build.check(lib, "pagerank_bin_histogram", code)
         histogram_launches.add(int(seg.shape[0] > 0))   # an empty slice launches nothing
@@ -190,36 +218,49 @@ def bin_edges(edges: torch.Tensor, n_vertices: int) -> BinnedEdges:
     items, pieces, rest = flat.split([n_items, plan.n_split, flat.numel() - n_items - plan.n_split])
     cursor = rest[:n_bins]                                  # advances over the segments
     pairs = torch.empty((n_edges, 2), dtype=torch.int32, device=edges.device)
+    binned_values = None if values is None else torch.empty_like(values)
     if two_pass:
         staged = torch.empty((min(n_edges, SEGMENT), 2), dtype=torch.int32, device=edges.device)
+        staged_values = None if values is None else torch.empty(
+            staged.shape[0], dtype=torch.float32, device=edges.device)
         bucket_cursors = rest[n_bins:].view(len(segments), -1)
     for i, seg in enumerate(segments):
-        src, src_kind = seg, kind
+        lo = i * SEGMENT
+        vals = None if values is None else values[lo:lo + seg.shape[0]]
+        src, src_kind, src_vals = seg, kind, vals
         if two_pass:
             src, src_kind = staged[:seg.shape[0]], INDEX_KINDS[torch.int32]
-            _scatter(lib, kind, seg, BIN_SHIFT + BUCKET_SHIFT, bucket_cursors[i], src, stream)
-        _scatter(lib, src_kind, src, BIN_SHIFT, cursor, pairs, stream)
-    return _binned(pairs, n_vertices, plan, items.view(-1, 4), pieces)
+            src_vals = None if values is None else staged_values[:seg.shape[0]]
+            _scatter(lib, kind, seg, BIN_SHIFT + BUCKET_SHIFT, bucket_cursors[i], src, stream,
+                     vals, src_vals)
+        _scatter(lib, src_kind, src, BIN_SHIFT, cursor, pairs, stream, src_vals, binned_values)
+    return _binned(pairs, n_vertices, plan, items.view(-1, 4), pieces, binned_values, sources)
 
 
 def _scatter(lib, kind: int, edges: torch.Tensor, shift: int, cursor: torch.Tensor,
-             out: torch.Tensor, stream: int) -> None:
+             out: torch.Tensor, stream: int, vals: Optional[torch.Tensor] = None,
+             vals_out: Optional[torch.Tensor] = None) -> None:
     """Each row of ``edges`` to ``out`` at ``cursor[dst >> shift]``, which
-    advances past it."""
+    advances past it, and its value of ``vals`` (if given) to ``vals_out``
+    at the same place."""
     code = lib.pagerank_bin_scatter(kind, edges.data_ptr(), edges.shape[0], shift,
-                                    cursor.numel(), cursor.data_ptr(), out.data_ptr(), stream)
+                                    cursor.numel(), cursor.data_ptr(), out.data_ptr(),
+                                    None if vals is None else vals.data_ptr(),
+                                    None if vals_out is None else vals_out.data_ptr(), stream)
     if code:
         build.check(lib, "pagerank_bin_scatter", code)
     scatter_launches.add(int(edges.shape[0] > 0))
 
 
 def binned_credits(binned: BinnedEdges, w: torch.Tensor) -> torch.Tensor:
-    """(V,) float32 credits of the binned slice: ``w[src]`` summed by
-    ``dst`` in fp64, each rounded once to fp32.  ``w`` is (V,) float32,
-    contiguous, on the pairs' device (the card).  One launch."""
-    v = binned.n_vertices
-    if w.dtype != torch.float32 or w.shape != (v,):
-        raise TypeError(f"binned_credits wants w of shape ({v},) float32, got "
+    """(V,) float32 credits of the binned slice: ``w[src]`` (times the
+    edge's value, where the slice was binned with values) summed by ``dst``
+    in fp64, each rounded once to fp32.  ``w`` is float32, contiguous, of
+    the sources' length (V unless binned with ``n_sources``), on the pairs'
+    device (the card).  One launch."""
+    v, n_w = binned.n_vertices, binned.n_sources
+    if w.dtype != torch.float32 or w.shape != (n_w,):
+        raise TypeError(f"binned_credits wants w of shape ({n_w},) float32, got "
                         f"{tuple(w.shape)} {w.dtype}")
     if w.device != binned.pairs.device:
         raise ValueError(f"w on {w.device}, the binned edges on {binned.pairs.device}")
@@ -233,10 +274,11 @@ def binned_credits(binned: BinnedEdges, w: torch.Tensor) -> torch.Tensor:
             return binned_credits(binned, w)
     out = torch.empty(v, dtype=torch.float32, device=w.device)
     lib = build.library("pagerank_credits", _SIGNATURES)
+    vals = None if binned.values is None else binned.values.data_ptr()
     code = lib.pagerank_credits(
-        binned.pairs.data_ptr(), binned.items.data_ptr(), binned.items.shape[0], w.data_ptr(), v,
-        BIN_SHIFT, binned.acc.data_ptr(), binned.done.data_ptr(), binned.pieces.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
+        binned.pairs.data_ptr(), vals, binned.items.data_ptr(), binned.items.shape[0],
+        w.data_ptr(), v, BIN_SHIFT, binned.acc.data_ptr(), binned.done.data_ptr(),
+        binned.pieces.data_ptr(), out.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
     if code:
         build.check(lib, "pagerank_credits", code)
     launches.add()
