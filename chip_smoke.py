@@ -86,8 +86,13 @@ Phases, in order; any failure raises and the run exits non-zero:
              (the cell's slice is the kernels line's logreg_margin row, the
              gradient's numbers beside it), then at the small size a traced
              4-thread AUTO job with its launches and counters asserted, held
-             to the CPU's plain path (check_logreg_sparse); nmf on Netflix's 17,770
-             movie columns (AUTO and reduce_scatter); one bf16 SPARSE round
+             to the CPU's plain path (check_logreg_sparse); nmf's initial
+             factors at the nmf cell's 480,189 x 64 and 64 x 17,770 drawn on
+             the card and by nmf._init (numpy), bit-equal on three seeds and
+             timed beside it, the kernels line's nmf_init row
+             (check_nmf_init); nmf on Netflix's 17,770 movie columns (AUTO
+             and reduce_scatter, each job's draw on the card: six nmf_init
+             launches asserted in every nmf run); one bf16 SPARSE round
              through DAddAccumulator at pagerank's V, fused and unfused,
              bit-exact with its plain path.  Beside the host runs, on the
              same data, the SPMD backend (4 mesh positions as threads on
@@ -361,6 +366,7 @@ from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign, kmeans_assign_plain)
 from repro_torch.kernels.logreg_margin.ops import (  # noqa: E402
     margin_residuals, margin_residuals_plain)
+from repro_torch.kernels.nmf_init import ops as nmf_init  # noqa: E402
 from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem_bytes  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
@@ -446,6 +452,9 @@ KERNELS = {
     "logreg_margin": ("src/repro_torch/csrc/logreg_margin.cu",
                       "no TPU kernel: the JAX package's logreg takes a dense x, "
                       "src/repro/analytics/logreg.py:34"),
+    "nmf_init": ("src/repro_torch/csrc/nmf_init.cu",
+                 "no TPU kernel: numpy's default_rng(seed).normal on the host, "
+                 "src/repro/analytics/nmf.py:64"),
 }
 
 # qwen2-72b (72.7 B parameters, 291 GB in fp32) cut in whole layers: the most
@@ -1740,6 +1749,36 @@ def check_credits(edges) -> dict:
     return per_thread[0]
 
 
+def check_nmf_init() -> dict:
+    """nmf's initial factors at the nmf cell's shape (Netflix's 480,189 users
+    x 17,770 movies at rank 64), drawn on the card by ``kernels/nmf_init``
+    and by ``nmf._init`` (numpy, the host) on three seeds past 32 bits: bit
+    for bit equal, or this raises.  The draw is timed by CUDA events (six
+    launches), ``_init`` by the host clock; the bound is the 4 B a value
+    written.  Its row is the kernels line's; none of these launches is
+    counted."""
+    dev = torch.device("cuda")
+    n, m, k = NETFLIX_USERS, NMF_COLS, NMF_RANK
+    numpy_ms = []
+    for seed in (2**31 + 5, 2**33 + 17, 3_141_592_653):
+        p, q, done = nmf_init.abs_normals(n, m, k, *nmf_init.seeded(seed), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_p, want_q = nmf._init(n, m, k, seed)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (int(done) and np.array_equal(p.cpu().numpy().view(np.uint32),
+                                             want_p.view(np.uint32))
+                and np.array_equal(q.cpu().numpy().view(np.uint32), want_q.view(np.uint32))):
+            raise AssertionError(f"nmf_init: seed {seed}'s P0 and Q0 are not _init's")
+        del p, q
+    stream = nmf_init.seeded(2**31 + 5)
+    t, by = bound_ms(4 * (n * k + k * m))
+    ms = time_ms(lambda: nmf_init.abs_normals(n, m, k, *stream, dev), 10)
+    return dict(shape=f"P0 ({n}, {k}) then Q0 ({k}, {m}) float32, 3 seeds bit-equal to _init",
+                max_abs_err=0.0, ms=ms,
+                plain_ms=float(np.median(numpy_ms)), bound_ms=t, bound_by=by, library_ms=None)
+
+
 def logreg_slice_kernels(x: CSRMatrix, y: torch.Tensor, label: str) -> dict:
     """Thread 0's slice of ``x``, as the host backend hands it out, through
     the margin kernel against the plain version (2e-6 on residuals in
@@ -2084,6 +2123,7 @@ def run_apps(keep: dict) -> dict:
     keep["logreg_margin"] = check_logreg_sparse(counts)
 
     # -- nmf, Netflix's movie columns -----------------------------------------
+    keep["nmf_init"] = check_nmf_init()
     t0 = time.perf_counter()
     r, _, _ = nmf_dataset(NMF_ROWS, NMF_COLS, NMF_RANK, seed=SEED)
     log(f"nmf: R ({NMF_ROWS}, {NMF_COLS}) f32, {r.nbytes / 1e9:.2f} GB (made in "
@@ -2093,14 +2133,17 @@ def run_apps(keep: dict) -> dict:
     (p_a, q_a, s_a), launched = run_app("nmf auto", counts, lambda: nmf.fit(
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto", session=session()))
     modes = {s_a.accumulator("q_partials").last_mode.value}
-    expect_launches("nmf auto", launched, {"accumulate_blocked": ITERS})
+    expect_launches("nmf auto", launched, {"accumulate_blocked": ITERS,
+                                           "nmf_init": nmf_init.LAUNCHES_A_DRAW})
     (p_d, q_d, s_d), launched = run_app("nmf reduce_scatter", counts, lambda: nmf.fit(
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=session()))
-    expect_launches("nmf reduce_scatter", launched, {"accumulate_blocked": 0})
+    expect_launches("nmf reduce_scatter", launched, {"accumulate_blocked": 0,
+                                                     "nmf_init": nmf_init.LAUNCHES_A_DRAW})
     np.testing.assert_allclose(q_a, q_d, rtol=1e-4, err_msg="nmf Q, auto vs reduce_scatter")
     (p_s, q_s, s_s), launched = run_app("nmf reduce_scatter spmd", counts, lambda: nmf.fit(
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=spmd_session()))
-    expect_launches("nmf reduce_scatter spmd", launched, NO_ACCUMULATE_KERNEL)
+    expect_launches("nmf reduce_scatter spmd", launched,
+                    {**NO_ACCUMULATE_KERNEL, "nmf_init": nmf_init.LAUNCHES_A_DRAW})
     np.testing.assert_allclose(q_s, q_d, rtol=1e-4, err_msg="nmf Q, spmd vs host")
     same_wire("nmf reduce_scatter spmd", s_s, s_d)
     log(f"nmf spmd: Q vs host max rel diff "
@@ -2334,7 +2377,7 @@ def run_armed(keep: dict) -> dict:
         "nmf auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
         lambda s: nmf.fit(r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto",
                           session=s)[1],
-        {"accumulate_blocked": ITERS},
+        {"accumulate_blocked": ITERS, "nmf_init": nmf_init.LAUNCHES_A_DRAW},
         lambda a, u: np.testing.assert_allclose(a, u, rtol=1e-4,
                                                 err_msg="nmf Q armed vs unarmed"))
     del r
@@ -4218,7 +4261,7 @@ def main() -> None:
     count_draws()
     keep: dict = {}
     counts = run_apps(keep)
-    for name in ("pagerank_credits", "logreg_margin"):
+    for name in ("pagerank_credits", "logreg_margin", "nmf_init"):
         measured[name] = keep.pop(name)
         log_kernel(name, measured[name])
     for name, n in run_armed(keep).items():

@@ -8,6 +8,11 @@ Under ``mode="auto"`` that round is dense on every iteration, so it is
 folded by the ``accumulate_blocked`` kernel.  The products are plain
 ``torch.matmul``, as the JAX package leaves them to XLA.  One
 ``thread_proc`` serves the host and the SPMD backend.
+
+The initial P and Q are numpy's ``default_rng(seed)`` normals (``_init``).
+Where the session's device is the card, ``fit`` draws the same numbers
+there (``kernels/nmf_init``, bit for bit), so a job does not wait on one
+host core for them; the CPU, and the oracle ``fit_reference``, keep numpy.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import AccumMode, Session
+from repro_torch.core import AccumMode, Session, telemetry
 from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.kernels.nmf_init import ops as nmf_init
 
 _EPS = 1e-9
 
@@ -40,6 +46,21 @@ def _init(n: int, m: int, k: int, seed: int):
     p = np.abs(rng.normal(size=(n, k))).astype(np.float32)
     q = np.abs(rng.normal(size=(k, m))).astype(np.float32)
     return p, q
+
+
+def _initial(sess: Session, n: int, m: int, k: int, seed: int):
+    """``_init``'s P0 and Q0 on the session's device, and the card's done
+    flag (None on the host).  On a CUDA device they are drawn there, always
+    (``kernels/nmf_init``); the CPU draws with numpy.  The path taken is
+    counted (``nmf.init_path.card`` or ``.host``) on the session's tracer,
+    once a job."""
+    card = sess.device.type == "cuda"
+    trc = sess.tracer
+    if telemetry.TRACING and trc.enabled:
+        trc.count_exact("nmf.init_path.card" if card else "nmf.init_path.host")
+    if not card:
+        return (*_init(n, m, k, seed), None)
+    return nmf_init.abs_normals(n, m, k, *nmf_init.seeded(seed), sess.device)
 
 
 def frob_loss(r, p, q, device=None) -> float:
@@ -69,7 +90,9 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
 
     A traced session records the job's ``job.setup`` (the draw of P0 and Q0,
     ``nmf.init``, inside), ``session.join`` and ``job.teardown`` spans on the
-    calling thread.  Returns ``(p, q, session)``.
+    calling thread.  On the card P0 and Q0 are drawn there (``_initial``);
+    the tear-down, which waits for the card anyway, checks that the draw
+    wrote every value.  Returns ``(p, q, session)``.
     """
     sess = session or Session(backend=backend, n_nodes=n_nodes,
                               threads_per_node=threads_per_node, mesh=mesh,
@@ -92,7 +115,7 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
 
     with sess.span("job", "job.setup"):
         with sess.span("job", "nmf.init"):
-            p_full0, q0 = _init(n, m, k, seed)
+            p_full0, q0, drawn = _initial(sess, n, m, k, seed)
         Q = sess.def_global("Q", q0)
         q_partials = sess.new_array("q_partials", (k * m + k * k,))
         with sess.span("job", "session.spawn"):
@@ -102,6 +125,8 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
     with sess.span("job", "job.teardown"):
         p_full = torch.cat([p.cpu() for p in ps]).numpy()
         q = Q.get().cpu().numpy()
+        if drawn is not None and not int(drawn):
+            raise RuntimeError("nmf: the card's draw of P0 and Q0 ran short of its stream")
     return p_full, q, sess
 
 
