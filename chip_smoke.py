@@ -1858,9 +1858,9 @@ def check_logreg_sparse(counts: dict) -> dict:
     generator: both kernels on thread 0's slice (``logreg_slice_kernels``)
     at ``LR_CSR`` and at the benchmark cell's size (``LR_CELL``, whose row
     is the kernels line's: the shape the cell's threads run); then a traced
-    4-thread AUTO job at ``LR_CSR`` on the card with its launches and
-    counters asserted, held to the CPU's plain path at 1e-6 of max
-    |theta|."""
+    4-thread AUTO job at ``LR_CSR`` on the card with its launches
+    asserted, held to the CPU's plain path at 1e-6 of max |theta|; the split
+    bins are those of the threads' slices binned as the job bins them."""
     from stepbench.generators import sparse_rows
     dev = torch.device("cuda")
     d = sparse_rows.make({"matrix": LR_CELL}, torch.Generator(dev).manual_seed(SEED), dev)
@@ -1879,21 +1879,23 @@ def check_logreg_sparse(counts: dict) -> dict:
             x, y, iters=ITERS, lr=1.0 / rows, mode="auto", session=traced))
         branches = [sp["args"]["mode"] for sp in
                     traced.tracer.spans("accumulate-round", "accumulate.round")]
-        counters = traced.tracer.counters()
     finally:
         traced.tracer.disable()
     expect_launches("logreg csr auto", launched, {
         "logreg_margin": N_THREADS * ITERS, "pagerank_credits": N_THREADS * ITERS,
         "pagerank_bin_histogram": N_THREADS, "pagerank_bin_scatter": N_THREADS})
-    want_counts = {"logreg.grad_path.binned": N_THREADS * ITERS, "logreg.nnz": x.nnz}
-    if any(counters.get(k) != v for k, v in want_counts.items()):
-        raise AssertionError(f"logreg csr auto: counters {counters}")
     th_cpu, _ = logreg.fit(x.to("cpu"), y.cpu(), iters=ITERS, lr=1.0 / rows, device="cpu")
     gap = float(np.abs(th - th_cpu).max() / np.abs(th_cpu).max())
     if gap > 1e-6:
         raise AssertionError(f"logreg csr auto: theta {gap:.3e} of max |theta| from the CPU's")
+    split = 0
+    for tid in range(N_THREADS):
+        part = x[slice(*partition_rows(rows, tid, N_THREADS))]
+        split += bin_edges(torch.stack([part.row_ids(torch.int32), part.indices], 1),
+                           x.shape[1], values=part.values,
+                           n_sources=part.shape[0]).plan.n_split
     log(f"logreg csr auto: branches {collections.Counter(branches)}, split bins "
-        f"{counters.get('logreg.grad_bins.split', 0)}, theta vs the CPU's plain path "
+        f"{split}, theta vs the CPU's plain path "
         f"{gap:.3e} of max |theta|")
     return cell
 

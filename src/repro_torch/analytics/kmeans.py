@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import AccumMode, Session
-from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign, kmeans_assign_plain
 
@@ -81,30 +80,3 @@ def fit(x, k: int, *, iters: int = 10, seed: int = 0,
 
     sess.run(thread_proc, data=(x,))
     return centers.get().cpu().numpy(), sess
-
-
-# ---------------------------------------------------------------------------
-# Deprecated pre-Session entry points
-# ---------------------------------------------------------------------------
-
-
-def fit_threads(x, k: int, *, n_nodes: int = 2, threads_per_node: int = 2,
-                iters: int = 10, seed: int = 0,
-                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
-                use_kernel: bool = False, device=None):
-    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
-    deprecated_entry("kmeans.fit_threads", 'kmeans.fit(backend="host")')
-    sess = Session(backend="host", n_nodes=n_nodes,
-                   threads_per_node=threads_per_node, accum_mode=mode, device=device)
-    centers, sess = fit(x, k, iters=iters, seed=seed, mode=mode,
-                        use_kernel=use_kernel, session=sess)
-    return centers, sess.store, sess.accumulator("partials")
-
-
-def fit_spmd(x, k: int, mesh, *, iters: int = 10, seed: int = 0,
-             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, device=None):
-    """Deprecated shim: ``fit(backend="spmd")``."""
-    deprecated_entry("kmeans.fit_spmd", 'kmeans.fit(backend="spmd")')
-    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
-    centers, _ = fit(x, k, iters=iters, seed=seed, mode=mode, session=sess)
-    return centers

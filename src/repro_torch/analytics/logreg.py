@@ -20,14 +20,9 @@ value an edge: each thread sorts its nonzeros by feature once a job
 row to a feature) and sums ``r[row] * x[row, feature]`` per feature in
 fp64 on chip (``binned_credits``), each rounded once to fp32.  A CPU slice
 takes :func:`_csr_grad`, the plain version the kernels are held against.
-A traced session counts the path once per thread and round
-(``logreg.grad_path.binned`` or ``.plain``), each thread's nonzeros once a
-job (``logreg.nnz``) and on the card its split bins (``logreg.grad_bins.split``),
-and records the job's ``job.setup``, ``session.join`` and ``job.teardown``
-spans on the calling thread.  A dense ``x`` keeps its path, its bits and the
-JAX package's spans.
-
-``fit_threads`` / ``fit_spmd`` remain as deprecation shims over ``fit``.
+A traced session records the job's ``job.setup``, ``session.join`` and
+``job.teardown`` spans on the calling thread.  A dense ``x`` keeps its path,
+its bits and the JAX package's spans.
 """
 
 from __future__ import annotations
@@ -39,8 +34,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import AccumMode, Session
-from repro_torch.core.dsm import GlobalStore
-from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.data.csr import CSRMatrix
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.logreg_margin.ops import margin_residuals, margin_residuals_plain
@@ -68,27 +61,22 @@ def _csr_grad(theta, xs: CSRMatrix, ys, rows):
         0, xs.indices.long(), terms).float()
 
 
-def _sparse_local_grad(ctx, xs: CSRMatrix, ys):
-    """This thread's gradient as a function of theta, counted once a call,
-    after the set-up it needs once a job: on the card the slice binned by
-    feature."""
-    ctx.count("logreg.nnz", xs.nnz)
+def _sparse_local_grad(xs: CSRMatrix, ys):
+    """This thread's gradient as a function of theta, after the set-up it
+    needs once a job: on the card the slice binned by feature."""
     if xs.is_cuda:
         pairs = torch.empty((xs.nnz, 2), dtype=torch.int32, device=xs.device)
         pairs[:, 0] = xs.row_ids(torch.int32)
         pairs[:, 1] = xs.indices
         binned = bin_edges(pairs, xs.shape[1], values=xs.values, n_sources=xs.shape[0])
         del pairs
-        ctx.count("logreg.grad_bins.split", binned.plan.n_split)
 
         def local(theta):
-            ctx.count("logreg.grad_path.binned")
             return binned_credits(binned, margin_residuals(xs, ys, theta))
     else:
         rows = xs.row_ids()
 
         def local(theta):
-            ctx.count("logreg.grad_path.plain")
             return _csr_grad(theta, xs, ys, rows)
     return local
 
@@ -133,7 +121,7 @@ def fit(x, y, *, iters: int = 10, lr: float = 1e-3,
 
     def thread_proc(ctx, xs, ys):
         if sparse:
-            local_grad = _sparse_local_grad(ctx, xs, ys)
+            local_grad = _sparse_local_grad(xs, ys)
         else:
             def local_grad(theta):
                 return _local_grad(theta, xs, ys)
@@ -181,31 +169,3 @@ def fit_ssp(x, y, *, n_workers: int = 4, staleness: int = 1, iters: int = 10,
 
     sess.run(worker, data=(x, y), timeout=60)
     return theta.get().cpu().numpy(), clock
-
-
-# ---------------------------------------------------------------------------
-# Deprecated pre-Session entry points
-# ---------------------------------------------------------------------------
-
-
-def fit_threads(x, y, *, n_nodes: int = 2, threads_per_node: int = 2,
-                iters: int = 10, lr: float = 1e-3,
-                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
-                store: Optional[GlobalStore] = None, device=None):
-    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
-    deprecated_entry("logreg.fit_threads", 'logreg.fit(backend="host")')
-    sess = Session(backend="host", n_nodes=n_nodes,
-                   threads_per_node=threads_per_node, store=store,
-                   accum_mode=mode, device=device)
-    theta, sess = fit(x, y, iters=iters, lr=lr, mode=mode, session=sess)
-    return theta, sess.store, sess.accumulator("grad")
-
-
-def fit_spmd(x, y, mesh, *, iters: int = 10, lr: float = 1e-3,
-             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, k: int = 0,
-             device=None):
-    """Deprecated shim: ``fit(backend="spmd")``."""
-    deprecated_entry("logreg.fit_spmd", 'logreg.fit(backend="spmd")')
-    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
-    theta, _ = fit(x, y, iters=iters, lr=lr, mode=mode, k=k or None, session=sess)
-    return theta

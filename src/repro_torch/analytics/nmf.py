@@ -22,8 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import AccumMode, Session, telemetry
-from repro_torch.core.session import SpmdBackend, deprecated_entry
+from repro_torch.core import AccumMode, Session
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.nmf_init import ops as nmf_init
 
@@ -51,14 +50,8 @@ def _init(n: int, m: int, k: int, seed: int):
 def _initial(sess: Session, n: int, m: int, k: int, seed: int):
     """``_init``'s P0 and Q0 on the session's device, and the card's done
     flag (None on the host).  On a CUDA device they are drawn there, always
-    (``kernels/nmf_init``); the CPU draws with numpy.  The path taken is
-    counted (``nmf.init_path.card`` or ``.host``) on the session's tracer,
-    once a job."""
-    card = sess.device.type == "cuda"
-    trc = sess.tracer
-    if telemetry.TRACING and trc.enabled:
-        trc.count_exact("nmf.init_path.card" if card else "nmf.init_path.host")
-    if not card:
+    (``kernels/nmf_init``); the CPU draws with numpy."""
+    if sess.device.type != "cuda":
         return (*_init(n, m, k, seed), None)
     return nmf_init.abs_normals(n, m, k, *nmf_init.seeded(seed), sess.device)
 
@@ -128,30 +121,3 @@ def fit(r, k: int, *, iters: int = 10, seed: int = 0,
         if drawn is not None and not int(drawn):
             raise RuntimeError("nmf: the card's draw of P0 and Q0 ran short of its stream")
     return p_full, q, sess
-
-
-# ---------------------------------------------------------------------------
-# Deprecated pre-Session entry points
-# ---------------------------------------------------------------------------
-
-
-def fit_threads(r, k: int, *, n_nodes: int = 2, threads_per_node: int = 2,
-                iters: int = 10, seed: int = 0,
-                mode: AccumMode | str = AccumMode.REDUCE_SCATTER,
-                store=None, device=None):
-    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
-    deprecated_entry("nmf.fit_threads", 'nmf.fit(backend="host")')
-    sess = Session(backend="host", n_nodes=n_nodes,
-                   threads_per_node=threads_per_node, store=store,
-                   accum_mode=mode, device=device)
-    p, q, sess = fit(r, k, iters=iters, seed=seed, mode=mode, session=sess)
-    return p, q, sess.store, sess.accumulator("q_partials")
-
-
-def fit_spmd(r, k: int, mesh, *, iters: int = 10, seed: int = 0,
-             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, device=None):
-    """Deprecated shim: ``fit(backend="spmd")``."""
-    deprecated_entry("nmf.fit_spmd", 'nmf.fit(backend="spmd")')
-    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
-    p, q, _ = fit(r, k, iters=iters, seed=seed, mode=mode, session=sess)
-    return p, q

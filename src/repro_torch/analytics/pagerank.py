@@ -27,9 +27,7 @@ gather of ``ranks / out_deg`` an edge (``binned_credits``): no E-sized
 temporary, and an atomic in device memory only where a bin split across
 CTAs merges its pieces.  A CPU slice takes
 :func:`_credits` over its edges as they are, the plain version the kernel
-is held against.  A traced session counts the path once per thread and
-round (``pagerank.credit_path.binned`` or ``.plain``) and each job's split
-bins (``pagerank.credit_bins.split``).
+is held against.
 """
 
 from __future__ import annotations
@@ -39,7 +37,6 @@ from typing import Optional
 import torch
 
 from repro_torch.core import AccumMode, Session
-from repro_torch.core.session import SpmdBackend, deprecated_entry
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits
 
@@ -90,21 +87,17 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
     def thread_proc(ctx, edges_loc, deg):
         if edges_loc.is_cuda:
             binned = bin_edges(edges_loc.contiguous(), n_vertices)
-            ctx.count("pagerank.credit_bins.split", binned.plan.n_split)
-            path = "pagerank.credit_path.binned"
 
             def local_credits(r):
                 return binned_credits(binned, r / deg)
         else:
             src, dst = edges_loc[:, 0].long(), edges_loc[:, 1].long()
-            path = "pagerank.credit_path.plain"
 
             def local_credits(r):
                 return _credits(src, dst, r, deg, n_vertices)
 
         def step(_):                       # the shared ranks carry the state
             with ctx.span("pagerank.round"):
-                ctx.count(path)
                 total = credits.accumulate(local_credits(ranks.get()), mode=mode)
                 ranks.set((1 - DAMPING) / n_vertices + DAMPING * total)
             return _
@@ -124,30 +117,3 @@ def fit(edges, n_vertices: int, *, iters: int = 10,
     with sess.span("job", "job.teardown"):
         out = ranks.get().cpu().numpy()
     return out, sess
-
-
-# ---------------------------------------------------------------------------
-# Deprecated pre-Session entry points
-# ---------------------------------------------------------------------------
-
-
-def fit_threads(edges, n_vertices: int, *, n_nodes: int = 2,
-                threads_per_node: int = 2, iters: int = 10,
-                mode: AccumMode | str = AccumMode.AUTO, device=None):
-    """Deprecated shim: ``fit(backend="host")`` with the old return tuple."""
-    deprecated_entry("pagerank.fit_threads", 'pagerank.fit(backend="host")')
-    sess = Session(backend="host", n_nodes=n_nodes,
-                   threads_per_node=threads_per_node, accum_mode=mode, device=device)
-    ranks, sess = fit(edges, n_vertices, iters=iters, mode=mode, session=sess)
-    return ranks, sess.store, sess.accumulator("credits")
-
-
-def fit_spmd(edges, n_vertices: int, mesh, *, iters: int = 10,
-             mode: AccumMode | str = AccumMode.REDUCE_SCATTER, k: int = 0,
-             device=None):
-    """Deprecated shim: ``fit(backend="spmd")``."""
-    deprecated_entry("pagerank.fit_spmd", 'pagerank.fit(backend="spmd")')
-    sess = Session(backend=SpmdBackend(mesh=mesh), device=device)
-    ranks, _ = fit(edges, n_vertices, iters=iters, mode=mode, k=k or None,
-                   session=sess)
-    return ranks

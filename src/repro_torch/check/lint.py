@@ -86,7 +86,7 @@ class LintRun:
 class LintCtx:
     """Duck-typed WorkerCtx substitute for the dry run.  Mirrors the ctx
     surface the analytics apps use: tid/n_threads/node_id,
-    guard/barrier/span/count, iterate/fori, and the read/write/inc/accumulate
+    guard/barrier/span, iterate/fori, and the read/write/inc/accumulate
     transport — all against shadow state."""
 
     def __init__(self, session, checker, run: LintRun, tid, n_threads: int,
@@ -115,9 +115,6 @@ class LintCtx:
     def span(self, name: str, **args):
         from repro_torch.core import telemetry
         return telemetry.NULL_SPAN
-
-    def count(self, name: str, amount: float = 1) -> None:
-        return None
 
     # -- iteration: run the body once, weight records by the trip count ------
 

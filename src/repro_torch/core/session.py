@@ -195,14 +195,6 @@ class WorkerCtx:
         timeline — the hook the analytics apps use to mark one round."""
         return telemetry.NULL_SPAN
 
-    def count(self, name: str, amount: float = 1) -> None:
-        """Add ``amount`` to the session tracer's counter ``name`` where it
-        is armed: the apps' per-thread counts, exact under concurrent
-        threads."""
-        trc = self._session.tracer
-        if telemetry.TRACING and trc.enabled:
-            trc.count_exact(name, amount)
-
     # -- iteration engine ----------------------------------------------------
 
     def iterate(self, step: Callable, carry, iters: int):
@@ -286,12 +278,11 @@ class SpmdWorkerCtx(WorkerCtx):
     collective call, not once per position."""
 
     def __init__(self, session: "Session", backend: "SpmdBackend", tid: int,
-                 values: Dict[str, Any], leader: bool, on_axis: bool):
+                 values: Dict[str, Any], leader: bool):
         super().__init__(session, tid, backend.n_threads, tid)
         self._backend = backend
         self.values = values
         self._leader = leader
-        self._on_axis = on_axis  # the position whose result stands for its tid
         self._accum_repeat = 1   # the enclosing loops' trip counts, multiplied
         self._first_trip = True  # in the first trip of every enclosing loop
 
@@ -316,12 +307,6 @@ class SpmdWorkerCtx(WorkerCtx):
         finally:
             self._accum_repeat, self._first_trip = outer_repeat, outer_first
         return carry
-
-    def count(self, name: str, amount: float = 1) -> None:
-        """Counted once per thread: by the positions on the data axis (the
-        positions off it repeat a thread's work)."""
-        if self._on_axis:
-            super().count(name, amount)
 
     # -- ref-op routing (the position's own values: `owner` has no transport
     # to shortcut and is ignored) --------------------------------------------
@@ -544,7 +529,7 @@ class SpmdTraffic:
     reaches by settling its trace-time dense bound at ``join``.
 
     ``by_shard`` attributes each call's traffic to the shard owning the
-    output ref — the per-shard half of ``Session.shard_stats()``."""
+    output ref — the per-shard wire traffic of ``Session.metrics()["shards"]``."""
 
     bytes_transferred: int = 0
     rounds: int = 0
@@ -682,8 +667,7 @@ class SpmdBackend:
         def position(linear: int):
             tid = mesh.coords(linear)[axis]
             shards = [a[tid * r:(tid + 1) * r] for a, r in zip(data, rows)]
-            ctx = SpmdWorkerCtx(session, self, tid, dict(shared0), linear == 0,
-                                on_axis(linear))
+            ctx = SpmdWorkerCtx(session, self, tid, dict(shared0), linear == 0)
             session._tls.ctx = ctx
             try:
                 return thread_proc(ctx, *shards, *broadcast), ctx.values
@@ -1012,19 +996,6 @@ class Session:
         return stepobs.openmetrics(self.metrics(), prefix=prefix,
                                    anomalies=anomalies)
 
-    def stats(self) -> Dict[str, Any]:
-        """Deprecated view: the original raw-counter triple; use
-        :meth:`metrics`."""
-        _warn_at_caller("Session.stats() is deprecated; use Session.metrics() "
-                        "for the canonical normalized snapshot",
-                        DeprecationWarning)
-        legacy = ("get", "set", "inc", "bytes_get", "bytes_set",
-                  "transfers", "migrated_in", "migrated_out")
-        raw = self.store.stats
-        return {"store": {k: raw.get(k, 0) for k in legacy},
-                "cache": self.cache.stats,
-                "wire_traffic": self.wire_traffic()}
-
     def metrics(self) -> Dict[str, Any]:
         """The unified observability snapshot, key set pinned by
         :data:`repro_torch.core.telemetry.SESSION_METRIC_KEYS`."""
@@ -1041,13 +1012,6 @@ class Session:
                 "tiers": {**self.store.tier_stats(),
                           "migration": self.store.migration_totals()},
                 "trace": self.tracer.snapshot()}
-
-    def shard_stats(self) -> Dict[int, Dict[str, Any]]:
-        """Deprecated per-shard view; use ``metrics()['shards']``."""
-        _warn_at_caller("Session.shard_stats() is deprecated; use "
-                        "Session.metrics()['shards'] for the canonical "
-                        "normalized per-shard rows", DeprecationWarning)
-        return self._shard_rows()
 
     def _shard_rows(self) -> Dict[int, Dict[str, Any]]:
         cache_rows = self.cache.shard_stats()
@@ -1122,8 +1086,3 @@ class Session:
         return (f"Session(backend={self.backend.kind}, device={self.device}, "
                 f"threads={self.backend.n_threads}, names={self.names()})")
 
-
-def deprecated_entry(old: str, new: str) -> None:
-    """One-liner for the pre-Session entry points kept as shims."""
-    warnings.warn(f"{old} is deprecated; use {new}", DeprecationWarning,
-                  stacklevel=3)

@@ -29,8 +29,7 @@ through every hot path —
 Two access levels:
 
 * ``Session(trace=True)`` arms a :class:`Tracer`; ``session.tracer`` records,
-  ``session.metrics()`` snapshots (superseding and wrapping ``stats()`` /
-  ``shard_stats()`` without breaking them), and
+  ``session.metrics()`` snapshots, and
   ``session.tracer.export("trace.json")`` writes a Chrome-trace /
   Perfetto-loadable JSON where a fit run renders as per-thread timelines of
   store / barrier / accumulate spans.
@@ -445,13 +444,6 @@ class Tracer:
         # exactly one thread per round, where no race exists.
         self._counters[name] = self._counters.get(name, 0) + amount
 
-    def count_exact(self, name: str, amount: float = 1) -> None:
-        """:meth:`count` under the tracer's lock: for a counter that several
-        threads add to at once and that must come out exact (an app's
-        per-thread counts)."""
-        with self._lock:
-            self._counters[name] = self._counters.get(name, 0) + amount
-
     def observe(self, name: str, value: float, shard: Optional[int] = None) -> None:
         # Deliberately lock-free: observe() fires 2-3× per store op — often
         # while the caller holds a shard lock — and serialising all worker
@@ -626,7 +618,7 @@ def as_tracer(trace) -> Tracer:
 
 #: Canonical store counter keys (plural nouns, plain ints) — the normalized
 #: form of the raw per-shard ``Shard.stats`` / ``ShardedStore.stats`` dicts,
-#: whose legacy singular-verb keys remain available as deprecated views.
+#: which keep their singular-verb keys.
 STORE_METRIC_KEYS = ("gets", "sets", "incs", "bytes_read", "bytes_written",
                      "transfers", "migrated_in", "migrated_out",
                      "migrated_bytes", "hot_hits", "cold_hits",

@@ -24,6 +24,7 @@ if ROOT not in sys.path:
 from repro_torch.analytics import logreg  # noqa: E402
 from repro_torch.core import Session, telemetry  # noqa: E402
 from repro_torch.data import CSRMatrix, partition_rows  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.logreg_margin import ops as margin_ops  # noqa: E402
 from repro_torch.kernels.logreg_margin.ops import (  # noqa: E402
     margin_residuals, margin_residuals_plain)
@@ -173,13 +174,15 @@ def test_mean_loss_falls_every_iteration():
 
 
 @pytest.mark.parametrize("backend", ["host", "spmd"])
-def test_cpu_fit_counts_the_plain_path_and_the_nonzeros(backend):
-    """A traced CPU job counts ``plain`` threads x iters times, each
-    thread's nonzeros once (all of them, over the threads), nothing of the
-    binned path, and records the job's spans; its theta is the untraced
-    job's to 1e-6 of max |theta|."""
+def test_cpu_fit_counts_the_plain_path_and_the_nonzeros(backend, monkeypatch):
+    """A traced CPU job calls the plain ``_csr_grad`` threads x iters times,
+    on slices whose nonzeros add up to all of them, launches no kernel, and
+    records the job's spans; its theta is the untraced job's to 1e-6 of max
+    |theta|."""
     from repro_torch.core import SpmdBackend, make_mesh
     x, y, _ = _data(rows=1000, nnz=29_400)
+    calls = _counting(monkeypatch, logreg, "_csr_grad")
+    build.reset_launches()
     if backend == "host":
         sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=CPU)
     else:
@@ -187,13 +190,13 @@ def test_cpu_fit_counts_the_plain_path_and_the_nonzeros(backend):
                        device=CPU)
     try:
         got, _ = logreg.fit(x, y, iters=ITERS, lr=_lr(y), session=sess)
-        counters = sess.tracer.counters()
         jobs = [e["name"] for e in sess.tracer.spans() if e.get("cat") == "job"]
     finally:
         sess.tracer.disable()
-    assert counters["logreg.grad_path.plain"] == 4 * ITERS
-    assert counters["logreg.nnz"] == 29_400
-    assert not {"logreg.grad_path.binned", "logreg.grad_bins.split"} & set(counters)
+    assert len(calls) == 4 * ITERS
+    slices = {id(c[1]): c[1] for c in calls}
+    assert len(slices) == 4 and sum(xs.nnz for xs in slices.values()) == 29_400
+    assert not any(build.launch_counts().values())
     assert sorted(jobs) == ["job.setup", "job.teardown", "session.join", "session.spawn"]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -205,9 +208,12 @@ def test_cpu_fit_counts_the_plain_path_and_the_nonzeros(backend):
     assert telemetry.armed_count() == 0
 
 
-def test_dense_fit_records_no_job_span_and_no_sparse_counter():
-    """A dense x keeps the JAX package's spans and counters."""
+def test_dense_fit_records_no_job_span_and_no_sparse_counter(monkeypatch):
+    """A dense x keeps the JAX package's spans and counters, and its path:
+    the dense gradient a thread and round, never the CSR one."""
     x, y, _ = _data()
+    sparse = _counting(monkeypatch, logreg, "_csr_grad")
+    dense = _counting(monkeypatch, logreg, "_local_grad")
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=CPU)
     try:
         logreg.fit(_dense(x).numpy(), y.numpy(), iters=2, session=sess)
@@ -217,6 +223,7 @@ def test_dense_fit_records_no_job_span_and_no_sparse_counter():
         sess.tracer.disable()
     assert "job" not in cats
     assert not any(k.startswith("logreg.") for k in counters)
+    assert not sparse and len(dense) == 4 * 2
 
 
 def test_margin_plain_by_hand():
@@ -259,6 +266,19 @@ def test_bin_edges_refuses_values_it_does_not_take():
 
 
 # -- on the card -------------------------------------------------------------------
+
+
+def _counting(monkeypatch, module, name: str) -> list:
+    """Replace ``module.name`` by a wrapper that records each call's
+    arguments; returns the record."""
+    calls, fn = [], getattr(module, name)
+
+    def counted(*args):
+        calls.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
 
 
 def _plain_grad(x: CSRMatrix, r: torch.Tensor):
@@ -347,29 +367,33 @@ def test_binned_credits_checks_w_against_the_sources(cuda):
 
 
 @pytest.mark.cuda
-def test_traced_job_on_the_card_takes_the_binned_path(cuda):
-    """A traced 4-thread job counts ``binned`` threads x iters times and no
-    ``plain``, the split bins and the nonzeros; the set-up's histogram and
-    scatter launch once a thread (123 bins: one pass), the margin and the
-    binned kernel once a thread and round; theta is the CPU's to 1e-6 of
-    max |theta|."""
+def test_traced_job_on_the_card_takes_the_binned_path(cuda, monkeypatch):
+    """A traced 4-thread job never calls the plain ``_csr_grad``; the
+    set-up's histogram and scatter launch once a thread (123 bins: one
+    pass), the margin and the binned kernel once a thread and round; the
+    slices, binned as the job bins them, split the popular feature's bin;
+    theta is the CPU's to 1e-6 of max |theta|."""
     x, y, _ = _data(rows=20_000, features=1_000_003, nnz=588_000, device=cuda)
-    kernels = (ops.histogram_launches, ops.scatter_launches, ops.launches, margin_ops.launches)
-    for c in kernels:
-        c.reset()
+    calls = _counting(monkeypatch, logreg, "_csr_grad")
+    build.reset_launches()
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=cuda)
     try:
         got, _ = logreg.fit(x, y, iters=5, lr=_lr(y), session=sess)
-        counters = sess.tracer.counters()
     finally:
         sess.tracer.disable()
-    assert counters["logreg.grad_path.binned"] == 4 * 5
-    assert "logreg.grad_path.plain" not in counters
-    assert counters["logreg.nnz"] == 588_000
+    launched = build.launch_counts()
+    assert not calls
+    assert [launched[name] for name in ("pagerank_bin_histogram", "pagerank_bin_scatter",
+                                        "pagerank_credits", "logreg_margin")] == [4, 4, 20, 20]
+    split = 0
+    for tid in range(4):
+        part = x[slice(*partition_rows(x.shape[0], tid, 4))]
+        split += bin_edges(torch.stack([part.row_ids(torch.int32), part.indices], 1),
+                           x.shape[1], values=part.values,
+                           n_sources=part.shape[0]).plan.n_split
     # the most popular feature alone (1/H(V) = 6.9% of a slice's 147,000
     # nonzeros) is over twice the unit (the floor, 2,048): its bin splits
-    assert counters["logreg.grad_bins.split"] >= 4
-    assert [c.count for c in kernels] == [4, 4, 20, 20]
+    assert split >= 4
     cpu_x = x.to(CPU)
     want, _ = logreg.fit(cpu_x, y.cpu(), iters=5, lr=_lr(y), device=CPU)
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

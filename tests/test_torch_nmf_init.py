@@ -28,6 +28,7 @@ if ROOT not in sys.path:
 from repro_torch.analytics import nmf  # noqa: E402
 from repro_torch.core import Session, telemetry  # noqa: E402
 from repro_torch.data import nmf_dataset  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.nmf_init import ops, ziggurat  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -515,19 +516,33 @@ def test_model_follows_crafted_slow_attempts(tab, case):
 # -- nmf.fit -----------------------------------------------------------------------
 
 
-def test_cpu_fit_draws_on_the_host_once_a_job():
-    """A traced CPU job counts ``nmf.init_path.host`` once and nothing of
-    the card's path; its factors are the untraced job's."""
+def _counting(monkeypatch, module, name: str) -> list:
+    """Replace ``module.name`` by a wrapper that records each call's
+    arguments; returns the record."""
+    calls, fn = [], getattr(module, name)
+
+    def counted(*args):
+        calls.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_cpu_fit_draws_on_the_host_once_a_job(monkeypatch):
+    """A traced CPU job draws with numpy's ``_init`` once and launches no
+    kernel; its factors are the untraced job's."""
     r, _, _ = nmf_dataset(60, 20, 3, seed=4)
+    calls = _counting(monkeypatch, nmf, "_init")
+    build.reset_launches()
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=CPU)
     try:
         p, q, _ = nmf.fit(r, 3, iters=4, seed=9, session=sess)
         nmf.fit(r, 3, iters=2, seed=10, session=sess)
-        counters = sess.tracer.counters()
     finally:
         sess.tracer.disable()
-    assert counters["nmf.init_path.host"] == 2
-    assert "nmf.init_path.card" not in counters
+    assert calls == [(60, 20, 3, 9), (60, 20, 3, 10)]
+    assert not any(build.launch_counts().values())
     want_p, want_q, _ = nmf.fit(r, 3, iters=4, seed=9, device=CPU)
     np.testing.assert_allclose(p, want_p, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(q, want_q, rtol=1e-5, atol=1e-6)
@@ -607,20 +622,19 @@ def test_card_scratch_is_under_64_mb(cuda):
 
 
 @pytest.mark.cuda
-def test_traced_card_job_draws_on_the_card(cuda):
-    """A traced card job counts ``nmf.init_path.card`` once and launches
+def test_traced_card_job_draws_on_the_card(cuda, monkeypatch):
+    """A traced card job never draws with numpy's ``_init`` and launches
     the draw's six kernels; its factors are the CPU job's."""
     r, _, _ = nmf_dataset(60, 20, 3, seed=4)
-    ops.launches.reset()
+    calls = _counting(monkeypatch, nmf, "_init")
+    build.reset_launches()
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=cuda)
     try:
         p, q, _ = nmf.fit(r, 3, iters=4, seed=9, session=sess)
-        counters = sess.tracer.counters()
     finally:
         sess.tracer.disable()
-    assert counters["nmf.init_path.card"] == 1
-    assert "nmf.init_path.host" not in counters
-    assert ops.launches.count == ops.LAUNCHES_A_DRAW
+    assert not calls
+    assert build.launch_counts()["nmf_init"] == ops.LAUNCHES_A_DRAW == 6
     want_p, want_q, _ = nmf.fit(r, 3, iters=4, seed=9, device=CPU)
     np.testing.assert_allclose(p, want_p, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(q, want_q, rtol=1e-4, atol=1e-6)

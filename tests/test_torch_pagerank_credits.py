@@ -23,7 +23,9 @@ if ROOT not in sys.path:
 
 from repro_torch.analytics import pagerank  # noqa: E402
 from repro_torch.core import Session, telemetry  # noqa: E402
-from repro_torch.data import powerlaw_graph  # noqa: E402
+from repro_torch.data import partition_rows, powerlaw_graph  # noqa: E402
+from repro_torch.device import to_tensor  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.pagerank_credits import ops  # noqa: E402
 from repro_torch.kernels.pagerank_credits.ops import (  # noqa: E402
     BIN, BIN_SHIFT, PIECE_FLOOR, bin_edges, bin_plan, binned_credits)
@@ -229,6 +231,19 @@ def _slice(edges: torch.Tensor, tid: int = 1, n: int = 4) -> torch.Tensor:
     return edges[lo:hi]
 
 
+def _counting(monkeypatch, module, name: str) -> list:
+    """Replace ``module.name`` by a wrapper that records each call's
+    arguments; returns the record."""
+    calls, fn = [], getattr(module, name)
+
+    def counted(*args):
+        calls.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
 def _keys(pairs: torch.Tensor, v: int) -> torch.Tensor:
     return torch.sort(pairs[:, 0].long() * v + pairs[:, 1].long()).values
 
@@ -269,19 +284,20 @@ def test_powerlaw_hub_splits_its_bin():
 
 
 @pytest.mark.parametrize("mode", ["auto", "sparse", "reduce_scatter"])
-def test_cpu_fit_takes_the_plain_path_once_per_thread_round(mode):
-    """A traced CPU job counts ``plain`` threads x iters times and nothing
-    of the binned path; its ranks are the untraced job's."""
+def test_cpu_fit_takes_the_plain_path_once_per_thread_round(mode, monkeypatch):
+    """A traced CPU job calls the plain ``_credits`` threads x iters times
+    and launches no kernel; its ranks are the untraced job's."""
     edges = powerlaw_graph(300, 5, seed=3)
     k = 20 if mode == "sparse" else None
+    calls = _counting(monkeypatch, pagerank, "_credits")
+    build.reset_launches()
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=CPU)
     try:
         got, _ = pagerank.fit(edges, 300, iters=6, mode=mode, k=k, session=sess)
-        counters = sess.tracer.counters()
     finally:
         sess.tracer.disable()
-    assert counters["pagerank.credit_path.plain"] == 4 * 6
-    assert not {"pagerank.credit_path.binned", "pagerank.credit_bins.split"} & set(counters)
+    assert len(calls) == 4 * 6
+    assert not any(build.launch_counts().values())
     want, _ = pagerank.fit(edges, 300, iters=6, mode=mode, k=k, device=CPU)
     np.testing.assert_allclose(got, want, **APP_TOL)
 
@@ -320,25 +336,28 @@ def test_binned_credits_kernel_matches_plain_credits(cuda, graph, segment, monke
 
 
 @pytest.mark.cuda
-def test_traced_job_on_the_card_takes_the_binned_path(cuda):
-    """A traced 4-thread job counts ``binned`` threads x iters times and no
-    ``plain``; the set-up's histogram and scatter launch once a thread (25
-    bins: one segment, one scatter pass), the round's kernel once a thread
-    and round; the ranks are the CPU oracle's to the app tolerance."""
+def test_traced_job_on_the_card_takes_the_binned_path(cuda, monkeypatch):
+    """A traced 4-thread job never calls the plain ``_credits``; the
+    set-up's histogram and scatter launch once a thread (25 bins: one
+    segment, one scatter pass), the round's kernel once a thread and round;
+    the hub's bin splits in each thread's slice; the ranks are the CPU
+    oracle's to the app tolerance."""
     edges = powerlaw_graph(200_000, 8, seed=6)
-    kernels = (ops.histogram_launches, ops.scatter_launches, ops.launches)
-    for c in kernels:
-        c.reset()
+    calls = _counting(monkeypatch, pagerank, "_credits")
+    build.reset_launches()
     sess = Session(backend="host", n_nodes=2, threads_per_node=2, trace=True, device=cuda)
     try:
         got, _ = pagerank.fit(edges, 200_000, iters=5, session=sess)
-        counters = sess.tracer.counters()
     finally:
         sess.tracer.disable()
-    assert counters["pagerank.credit_path.binned"] == 4 * 5
-    assert "pagerank.credit_path.plain" not in counters
-    assert counters["pagerank.credit_bins.split"] >= 4      # the hub's bin, in each slice
-    assert [c.count for c in kernels] == [4, 4, 20]
+    launched = build.launch_counts()
+    assert not calls
+    assert [launched[name] for name in ("pagerank_bin_histogram", "pagerank_bin_scatter",
+                                        "pagerank_credits")] == [4, 4, 4 * 5]
+    e = to_tensor(edges, cuda)                               # as fit holds them
+    split = sum(bin_edges(e[slice(*partition_rows(e.shape[0], tid, 4))], 200_000).plan.n_split
+                for tid in range(4))
+    assert split >= 4                                        # the hub's bin, in each slice
     np.testing.assert_allclose(got, pagerank.fit_reference(edges, 200_000, 5, device=CPU),
                                **APP_TOL)
     assert telemetry.armed_count() == 0

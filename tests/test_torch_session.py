@@ -105,15 +105,12 @@ def test_spawn_accumulate_traffic_and_metrics():
     assert sess.run(proc) == [4.0] * 4
     assert sess.accumulator("out").bytes_transferred == (4 + 1) * 16
     assert sess.wire_traffic() == (4 + 1) * 16
-    with pytest.warns(DeprecationWarning, match="Session.stats"):
-        raw = sess.stats()
-    assert raw["cache"].hits + raw["cache"].misses >= 4
     m = sess.metrics()
+    assert m["cache"]["hits"] + m["cache"]["misses"] >= 4
     assert tuple(m) == jtelemetry.SESSION_METRIC_KEYS == telemetry.SESSION_METRIC_KEYS
     assert set(m["store"]) == set(jtelemetry.STORE_METRIC_KEYS)
     assert set(m["cache"]) == set(jtelemetry.CACHE_METRIC_KEYS)
-    with pytest.warns(DeprecationWarning, match="shard_stats"):
-        assert sum(r["wire_traffic"] for r in sess.shard_stats().values()) == 80
+    assert sum(r["wire_traffic"] for r in m["shards"].values()) == 80
 
 
 def test_session_parity_from_shared_state():

@@ -488,11 +488,7 @@ def test_mesh_none_is_one_position_on_the_cpu_and_metrics_say_spmd():
     sess.run(lambda ctx: out.accumulate(torch.ones(4)))
     m = sess.metrics()
     assert m["backend"] == "spmd" and m["wire_traffic"] == 2 * 4
-    with pytest.warns(DeprecationWarning):
-        assert sess.stats()["wire_traffic"] == 2 * 4
-    with pytest.warns(DeprecationWarning):
-        rows = sess.shard_stats()
-    assert sum(r["wire_traffic"] for r in rows.values()) == 2 * 4
+    assert sum(r["wire_traffic"] for r in m["shards"].values()) == 2 * 4
     assert sess.accumulator("out") is sess.backend.stats
     assert sess.healthy_nodes() == [0] and sess.thread_states() == {}
     with pytest.raises(RuntimeError, match="host backend"):
@@ -598,37 +594,34 @@ def test_pagerank_spmd(ref, mode, k):
 
 @pytest.mark.parametrize("shape,names", [((4,), ("data",)), ((4, 2), ("data", "model"))])
 def test_pagerank_spmd_counts_its_credit_path_once_per_thread_round(shape, names):
-    """The positions on the data axis count the CPU's ``plain`` path, one a
-    thread and round; the positions off it repeat a thread's work and count
-    nothing."""
+    """A mesh with a data axis of 4 is 4 threads, whatever its other axes:
+    the positions off the data axis repeat a thread's work, so the ranks and
+    the wire traffic are the host's."""
     edges = powerlaw_graph(300, 5, seed=3)
-    sess = Session(backend=SpmdBackend(mesh=_mesh(shape, names)), trace=True)
-    try:
-        pagerank.fit(edges, 300, iters=8, session=sess)
-        counters = sess.tracer.counters()
-    finally:
-        sess.tracer.disable()
-    assert counters["pagerank.credit_path.plain"] == 4 * 8
-    assert "pagerank.credit_path.binned" not in counters
+    sess = Session(backend=SpmdBackend(mesh=_mesh(shape, names)))
+    rk, _ = pagerank.fit(edges, 300, iters=8, session=sess)
+    rk_h, s_h = pagerank.fit(edges, 300, iters=8, device=CPU)
+    np.testing.assert_allclose(rk, rk_h, **APP_TOL)
+    assert sess.wire_traffic() == s_h.wire_traffic() > 0
 
 
-# -- the deprecated shims -------------------------------------------------------
+# -- fit on a session the caller made ------------------------------------------
 
 
 def _app_case(app):
-    """Arguments, a mode other than the shims' default (so the shim's mode
-    shows in the result and the traffic), and the result to compare."""
+    """Arguments, a mode other than the apps' default (so the session's mode
+    shows in the traffic), and the result to compare."""
     if app == "logreg":
         x, y, _ = logreg_dataset(200, 16, seed=5)
-        return (x, y), dict(iters=6, lr=1e-3, mode="gather_all"), lambda o: o
+        return (x, y), dict(iters=6, lr=1e-3, mode="gather_all"), lambda o: o[0]
     if app == "kmeans":
         x, _, _ = kmeans_dataset(300, 8, 4, seed=6)
-        return (x, 4), dict(iters=5, seed=6, mode="gather_all"), lambda o: o
+        return (x, 4), dict(iters=5, seed=6, mode="gather_all"), lambda o: o[0]
     if app == "nmf":
         r, _, _ = nmf_dataset(120, 32, 4, seed=2)
         return (r, 4), dict(iters=5, seed=3, mode="gather_all"), lambda o: o[1]
     return ((powerlaw_graph(300, 5, seed=3), 300), dict(iters=6, mode="gather_all"),
-            lambda o: o)
+            lambda o: o[0])
 
 
 _MODULES = {"logreg": logreg, "kmeans": kmeans, "nmf": nmf, "pagerank": pagerank}
@@ -636,47 +629,29 @@ _ACCUMULATED = {"logreg": "grad", "kmeans": "partials", "nmf": "q_partials",
                 "pagerank": "credits"}
 
 
+@pytest.mark.parametrize("backend", ["host", "spmd"])
 @pytest.mark.parametrize("app", ["logreg", "kmeans", "nmf", "pagerank"])
-def test_fit_threads_shim_warns_and_matches_fit(app):
-    """The shim is fit on the host backend: the same result to the app's
-    limit (the host accumulator sums in arrival order, so not to the bit),
-    and its accumulator has the shim's mode and fit's traffic."""
+def test_fit_on_a_given_session_matches_fit(app, backend):
+    """``fit(session=...)`` on a host session set to GATHER_ALL, or on an
+    SPMD session of a 4-position mesh, gives ``fit(device=CPU)``'s result to
+    the app's limit (the threads' sums run in another order), one round of
+    the app's accumulator an iteration, and wire traffic."""
     module = _MODULES[app]
     args, kw, pick = _app_case(app)
-    with pytest.warns(DeprecationWarning, match=f"{app}.fit_threads"):
-        got = module.fit_threads(*args, n_nodes=2, threads_per_node=2, device=CPU, **kw)
+    if backend == "host":
+        sess = Session(backend="host", n_nodes=2, threads_per_node=2,
+                       accum_mode="gather_all", device=CPU)
+    else:
+        sess = _spmd()
+    got = module.fit(*args, session=sess, **kw)
     want = module.fit(*args, device=CPU, **kw)
-    np.testing.assert_allclose(pick(got[:-2]) if app == "nmf" else got[0],
-                               pick(want[:-1]) if app == "nmf" else want[0],
+    np.testing.assert_allclose(pick(got), pick(want),
                                **(KMEANS_TOL if app in ("kmeans", "nmf") else APP_TOL))
-    accu, want_accu = got[-1], want[-1].accumulator(_ACCUMULATED[app])
-    assert accu.mode is AccumMode.GATHER_ALL
-    assert accu.rounds == kw["iters"]      # the accumulator, as repro returns it
-    assert accu.bytes_transferred == want_accu.bytes_transferred > 0
-
-
-@pytest.mark.parametrize("app", ["logreg", "kmeans", "nmf", "pagerank"])
-def test_fit_spmd_shim_warns_and_matches_fit(app, monkeypatch):
-    """The shim is fit on an SPMD session of its mesh: the same result to the
-    bit, and the shim's session carried the traffic of fit's mode and k."""
-    module = _MODULES[app]
-    args, kw, pick = _app_case(app)
-    if app in ("logreg", "pagerank"):
-        kw = dict(kw, mode="sparse", k=5)
-    made = []
-
-    def session(*a, **k):
-        made.append(Session(*a, **k))
-        return made[-1]
-
-    monkeypatch.setattr(module, "Session", session)
-    with pytest.warns(DeprecationWarning, match=f"{app}.fit_spmd"):
-        got = module.fit_spmd(*args, _mesh(), device=CPU, **kw)
-    want = module.fit(*args, session=_spmd(), **kw)
-    np.testing.assert_array_equal(pick(got), pick(want[:-1]) if app == "nmf" else want[0])
-    assert len(made) == 1 and made[0].backend.n_threads == 4
-    assert made[0].wire_traffic() == want[-1].wire_traffic() > 0
-    assert made[0].accumulator(_ACCUMULATED[app]).rounds == kw["iters"]
+    accu = sess.accumulator(_ACCUMULATED[app])
+    if backend == "host":
+        assert accu.mode is AccumMode.GATHER_ALL
+    assert accu.rounds == kw["iters"]
+    assert sess.wire_traffic() > 0
 
 
 def test_join_timeout_breaks_the_mesh():

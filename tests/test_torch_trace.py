@@ -257,7 +257,7 @@ def test_trace_counters_match_repro():
     assert ops[0] == ops[1]
 
 
-# -- stats unification: pinned key sets, deprecated views intact --------------
+# -- stats unification: pinned key sets --------------------------------------
 
 
 def test_metric_key_sets_pinned():
@@ -273,33 +273,24 @@ def test_metric_key_sets_pinned():
         assert set(row) == {"store", "cache", "wire_traffic"}
         assert set(row["store"]) == set(STORE_METRIC_KEYS) | {"names"}
         assert set(row["cache"]) == set(CACHE_METRIC_KEYS)
-    with pytest.warns(DeprecationWarning, match="Session.stats"):
-        raw = sess.stats()
-    assert m["store"]["gets"] == raw["store"]["get"]
-    assert m["store"]["bytes_written"] == raw["store"]["bytes_set"]
-    assert m["cache"]["hits"] == raw["cache"].hits
-    assert m["wire_traffic"] == raw["wire_traffic"]
+    raw = sess.store.stats
+    assert m["store"]["gets"] == raw["get"]
+    assert m["store"]["bytes_written"] == raw["bytes_set"]
+    assert m["cache"]["hits"] == sess.cache.stats.hits
+    assert m["wire_traffic"] == sess.wire_traffic()
 
 
-def test_deprecated_stats_shapes_unchanged():
+def test_cache_stats_attributes():
+    """The cache's raw counters, which ``metrics()["cache"]`` is made from."""
     x, y = _logreg_data()
     theta, sess = logreg.fit(x, y, iters=2, n_nodes=2, threads_per_node=1,
                              device=CPU)
-    with pytest.warns(DeprecationWarning, match="Session.stats"):
-        raw = sess.stats()
-    assert set(raw) == {"store", "cache", "wire_traffic"}
-    assert set(raw["store"]) == {"get", "set", "inc", "bytes_get", "bytes_set",
-                                 "transfers", "migrated_in", "migrated_out"}
-    cs = raw["cache"]
+    cs = sess.cache.stats
     for attr in ("hits", "misses", "invalidations", "write_messages",
                  "missing_messages", "evictions", "hit_rate"):
         assert hasattr(cs, attr)
     assert cs.as_dict()["hits"] == cs.hits
-    with pytest.warns(DeprecationWarning, match="Session.shard_stats"):
-        shard_rows = sess.shard_stats()
-    for sid, row in shard_rows.items():
-        assert set(row) == {"store", "cache", "wire_traffic"}
-        assert "get" in row["store"] and "names" in row["store"]
+    assert sess.metrics()["cache"] == cs.as_dict()
 
 
 # -- recorder robustness ------------------------------------------------------
