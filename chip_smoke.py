@@ -90,9 +90,14 @@ Phases, in order; any failure raises and the run exits non-zero:
              factors at the nmf cell's 480,189 x 64 and 64 x 17,770 drawn on
              the card and by nmf._init (numpy), bit-equal on three seeds and
              timed beside it, the kernels line's nmf_init row
-             (check_nmf_init); nmf on Netflix's 17,770 movie columns (AUTO
-             and reduce_scatter, each job's draw on the card: six nmf_init
-             launches asserted in every nmf run); one bf16 SPARSE round
+             (check_nmf_init); nmf's two products over R (R.Q^T, P^T.R) in
+             3xTF32 at one thread's slice of the nmf cell (120,047 x 17,770
+             from an odd row, rank 64), held to fp64 products and timed by
+             CUDA events beside fp32 torch.matmul, the kernels line's
+             nmf_products rows (check_nmf_products); nmf on Netflix's 17,770
+             movie columns (AUTO and reduce_scatter, each job's draw on the
+             card: six nmf_init launches and two nmf_products launches a
+             thread and round asserted in every nmf run); one bf16 SPARSE round
              through DAddAccumulator at pagerank's V, fused and unfused,
              bit-exact with its plain path.  Beside the host runs, on the
              same data, the SPMD backend (4 mesh positions as threads on
@@ -367,6 +372,7 @@ from repro_torch.kernels.kmeans_assign.ops import (  # noqa: E402
 from repro_torch.kernels.logreg_margin.ops import (  # noqa: E402
     margin_residuals, margin_residuals_plain)
 from repro_torch.kernels.nmf_init import ops as nmf_init  # noqa: E402
+from repro_torch.kernels.nmf_products import ops as nmf_products  # noqa: E402
 from repro_torch.kernels.pagerank_credits.ops import bin_edges, binned_credits  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem_bytes  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
@@ -455,7 +461,14 @@ KERNELS = {
     "nmf_init": ("src/repro_torch/csrc/nmf_init.cu",
                  "no TPU kernel: numpy's default_rng(seed).normal on the host, "
                  "src/repro/analytics/nmf.py:64"),
+    "nmf_products_rqt": ("src/repro_torch/csrc/nmf_products.cu",
+                         "no TPU kernel: XLA's product r @ q.T, src/repro/analytics/nmf.py:27"),
+    "nmf_products_ptr": ("src/repro_torch/csrc/nmf_products.cu",
+                         "no TPU kernel: XLA's product p.T @ r, src/repro/analytics/nmf.py:32"),
 }
+# a kernels line row counted by another row's launch counter: nmf's two
+# products are one library and one counter
+LAUNCH_COUNTER = {"nmf_products_rqt": "nmf_products", "nmf_products_ptr": "nmf_products"}
 
 # qwen2-72b (72.7 B parameters, 291 GB in fp32) cut in whole layers: the most
 # that leave the card >= 8 GB beside a 4 x 2048 prefill's peak
@@ -1779,6 +1792,51 @@ def check_nmf_init() -> dict:
                 plain_ms=float(np.median(numpy_ms)), bound_ms=t, bound_by=by, library_ms=None)
 
 
+def check_nmf_products() -> dict:
+    """nmf's two products over R at one thread's slice of the nmf cell:
+    Netflix's 480,189 users over four threads, 120,047 rows x 17,770 movies,
+    R a view from row 1 of a larger matrix (its pitch 71,080 B, 8 mod 16, as
+    a slice of the cell's R starts), P and Q at rank 64, all non-negative
+    as nmf's are.  Each kernel is held to the fp64 product, its error scaled
+    by |A|.|B| (here the product itself) within twice fp32 torch.matmul's
+    (TF32 off) or 2^-20, and to its own bits on a second call; each is timed
+    by CUDA events beside torch.matmul, the plain path and the library at
+    once.  The bound is R's read, 4 B an element.  Returns the kernels
+    line's rows; none of these launches is counted."""
+    dev = torch.device("cuda")
+    n, m, k = NETFLIX_USERS // N_THREADS, NMF_COLS, NMF_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    r = torch.rand(n + 1, m, generator=gen, device=dev)[1:]
+    p = torch.rand(n, k, generator=gen, device=dev)
+    q = torch.rand(k, m, generator=gen, device=dev)
+    bound, by = bound_ms(4 * n * m)
+    rows = {}
+    for name, fn, lib, exact in (
+            ("nmf_products_rqt", lambda: nmf_products.rqt(r, q), lambda: r @ q.T,
+             lambda: torch.cat([blk.double() @ q.double().T for blk in r.split(1 << 14)])),
+            ("nmf_products_ptr", lambda: nmf_products.ptr(p, r), lambda: p.T @ r,
+             lambda: sum(pb.double().T @ rb.double()
+                         for pb, rb in zip(p.split(1 << 14), r.split(1 << 14))))):
+        got, want = fn(), exact()
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"{name}: two calls differ")
+        err = float(((got.double() - want).abs() / want).max())
+        lib_err = float(((lib().double() - want).abs() / want).max())
+        if err > max(2 * lib_err, 2.0 ** -20):
+            raise AssertionError(f"{name}: scaled error {err:.3e} past twice torch.matmul's "
+                                 f"{lib_err:.3e} (or 2^-20)")
+        library_ms = time_ms(lib, 10)
+        rows[name] = dict(
+            shape=f"R ({n}, {m}) from row 1, pitch {4 * m} B; P ({n}, {k}), Q ({k}, {m}) f32; "
+                  f"scaled error {err:.3e} (torch.matmul's {lib_err:.3e})",
+            max_abs_err=float((got.double() - want).abs().max()), ms=time_ms(fn, 10),
+            plain_ms=library_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+        del got, want
+    log("nmf_products at the nmf cell's thread slice (3xTF32 kernel vs fp32 torch.matmul, "
+        "ms):", json.dumps(rows))
+    return rows
+
+
 def logreg_slice_kernels(x: CSRMatrix, y: torch.Tensor, label: str) -> dict:
     """Thread 0's slice of ``x``, as the host backend hands it out, through
     the margin kernel against the plain version (2e-6 on residuals in
@@ -2126,6 +2184,8 @@ def run_apps(keep: dict) -> dict:
 
     # -- nmf, Netflix's movie columns -----------------------------------------
     keep["nmf_init"] = check_nmf_init()
+    keep.update(check_nmf_products())
+    products = {"nmf_products": 2 * N_THREADS * ITERS}      # R.Q^T and P^T.R a thread and round
     t0 = time.perf_counter()
     r, _, _ = nmf_dataset(NMF_ROWS, NMF_COLS, NMF_RANK, seed=SEED)
     log(f"nmf: R ({NMF_ROWS}, {NMF_COLS}) f32, {r.nbytes / 1e9:.2f} GB (made in "
@@ -2136,16 +2196,18 @@ def run_apps(keep: dict) -> dict:
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto", session=session()))
     modes = {s_a.accumulator("q_partials").last_mode.value}
     expect_launches("nmf auto", launched, {"accumulate_blocked": ITERS,
-                                           "nmf_init": nmf_init.LAUNCHES_A_DRAW})
+                                           "nmf_init": nmf_init.LAUNCHES_A_DRAW, **products})
     (p_d, q_d, s_d), launched = run_app("nmf reduce_scatter", counts, lambda: nmf.fit(
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=session()))
     expect_launches("nmf reduce_scatter", launched, {"accumulate_blocked": 0,
-                                                     "nmf_init": nmf_init.LAUNCHES_A_DRAW})
+                                                     "nmf_init": nmf_init.LAUNCHES_A_DRAW,
+                                                     **products})
     np.testing.assert_allclose(q_a, q_d, rtol=1e-4, err_msg="nmf Q, auto vs reduce_scatter")
     (p_s, q_s, s_s), launched = run_app("nmf reduce_scatter spmd", counts, lambda: nmf.fit(
         r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, session=spmd_session()))
     expect_launches("nmf reduce_scatter spmd", launched,
-                    {**NO_ACCUMULATE_KERNEL, "nmf_init": nmf_init.LAUNCHES_A_DRAW})
+                    {**NO_ACCUMULATE_KERNEL, "nmf_init": nmf_init.LAUNCHES_A_DRAW,
+                     "nmf_products": 2 * SPMD_POSITIONS * ITERS})
     np.testing.assert_allclose(q_s, q_d, rtol=1e-4, err_msg="nmf Q, spmd vs host")
     same_wire("nmf reduce_scatter spmd", s_s, s_d)
     log(f"nmf spmd: Q vs host max rel diff "
@@ -2379,9 +2441,11 @@ def run_armed(keep: dict) -> dict:
         "nmf auto", counts, lambda: HostBackend(N_NODES, THREADS_PER_NODE),
         lambda s: nmf.fit(r, NMF_RANK, iters=ITERS, seed=NMF_INIT_SEED, mode="auto",
                           session=s)[1],
-        {"accumulate_blocked": ITERS, "nmf_init": nmf_init.LAUNCHES_A_DRAW},
+        {"accumulate_blocked": ITERS, "nmf_init": nmf_init.LAUNCHES_A_DRAW,
+         "nmf_products": 2 * N_THREADS * ITERS},
         lambda a, u: np.testing.assert_allclose(a, u, rtol=1e-4,
-                                                err_msg="nmf Q armed vs unarmed"))
+                                                err_msg="nmf Q armed vs unarmed"),
+        lint_extra={"nmf_products": 2 * N_THREADS})     # the dry run's round body, a thread
     del r
     seeded_defects()
     return counts
@@ -4263,7 +4327,8 @@ def main() -> None:
     count_draws()
     keep: dict = {}
     counts = run_apps(keep)
-    for name in ("pagerank_credits", "logreg_margin", "nmf_init"):
+    for name in ("pagerank_credits", "logreg_margin", "nmf_init", "nmf_products_rqt",
+                 "nmf_products_ptr"):
         measured[name] = keep.pop(name)
         log_kernel(name, measured[name])
     for name, n in run_armed(keep).items():
@@ -4279,13 +4344,13 @@ def main() -> None:
         counts[name] = counts.get(name, 0) + n
     draw_summary()
     log(f"chip_smoke.py wall {time.perf_counter() - started:.1f} s, the build included")
-    missing = [name for name in KERNELS if counts.get(name, 0) == 0]
+    missing = [name for name in KERNELS if counts.get(LAUNCH_COUNTER.get(name, name), 0) == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts[name],
+         "launches": counts[LAUNCH_COUNTER.get(name, name)],
          **{key: measured[name][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          **{key: measured[name][key] for key in GRAD_KEYS if key in measured[name]}}

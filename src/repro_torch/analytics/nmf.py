@@ -5,8 +5,12 @@ With rows partitioned across threads, P's update is thread-local; Q's update
 needs two global reductions — numer = PᵀR (k×m) and gram = PᵀP (k×k) —
 which is precisely an accumulator workload: one round of k·m + k² floats.
 Under ``mode="auto"`` that round is dense on every iteration, so it is
-folded by the ``accumulate_blocked`` kernel.  The products are plain
-``torch.matmul``, as the JAX package leaves them to XLA.  One
+folded by the ``accumulate_blocked`` kernel.  The two products over R
+(``R·Qᵀ`` in ``_update_p``, ``Pᵀ·R`` in ``_q_partials``), which the JAX
+package leaves to XLA, run on the card as one hand-written 3xTF32 kernel
+each (``kernels/nmf_products``: float32-accurate, on the tensor cores,
+R streamed once); on the CPU they are ``torch.matmul``, and the small
+products beside them are ``torch.matmul`` everywhere.  One
 ``thread_proc`` serves the host and the SPMD backend.
 
 The initial P and Q are numpy's ``default_rng(seed)`` normals (``_init``).
@@ -25,17 +29,22 @@ import torch
 from repro_torch.core import AccumMode, Session
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.nmf_init import ops as nmf_init
+from repro_torch.kernels.nmf_products import ops as nmf_products
 
 _EPS = 1e-9
 
 
 def _update_p(p, q, r):
-    """P ← P ⊙ (RQᵀ) / (PQQᵀ)."""
-    return p * (r @ q.T) / (p @ (q @ q.T) + _EPS)
+    """P ← P ⊙ (RQᵀ) / (PQQᵀ), in place on the two fresh (n, k) products:
+    the same operations and bits as ``p * (r @ q.T) / (p @ (q @ q.T) +
+    _EPS)`` with two of its four temporaries."""
+    rqt = nmf_products.rqt(r, q) if r.is_cuda else r @ q.T
+    return rqt.mul_(p).div_((p @ (q @ q.T)).add_(_EPS))
 
 
 def _q_partials(p, r):
-    return p.T @ r, p.T @ p            # numer (k,m), gram (k,k)
+    numer = nmf_products.ptr(p, r) if r.is_cuda else p.T @ r
+    return numer, p.T @ p              # numer (k,m), gram (k,k)
 
 
 def _init(n: int, m: int, k: int, seed: int):
